@@ -1,0 +1,539 @@
+"""Smoke test of the PyTorch + CUDA port (rtvb_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+1. builds the hand-written CUDA kernels from rtvb_tpu_torch/csrc;
+2. holds each kernel against its plain PyTorch version on the same CUDA
+   inputs at the shapes the 1080p frame gives it (error, CUDA-event times);
+3. drives the real-time frame — Engine(device="cuda") with the slice
+   settings at 1920×1080 — through warm-up and timed frames, with every
+   kernel's launch counter reset just before and read just after;
+4. checks the frame: u8 shape, finite, non-constant, primary hit fraction;
+5. profiles three more frames (torch.profiler): host ms per engine stage,
+   the device's busy share, device ops per frame, the top device kernels;
+6. renders two frames at 320×180 with the kernels on the card and with
+   the plain versions on the CPU, and compares them like the CPU slice test.
+
+Exits non-zero, without the final line, on any failure or without a card.
+The last line is {"ok": true, "device": {...}}; the line before it lists
+the kernels as JSON.  Every measured case goes to chiprun_out/chip_smoke.json
+and nvcc's register / spill report to chiprun_out/nvcc_ptxas.log.
+"""
+from __future__ import annotations
+
+import bisect
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+import traceback
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+LOG_DIR = os.path.join(REPO, "chiprun_out")
+FRAME = (1920, 1080)          # the product frame (width, height)
+VS_CPU = (320, 180)           # whole-frame card-vs-CPU comparison size
+
+# each ported kernel: csrc source, the TPU pallas_call it replaces
+KERNELS = {
+    "trace": ("rtvb_tpu_torch/csrc/trace_kernel.cu",
+              "rtvb_tpu/ops/trace_kernel.py:208"),
+    "tri": ("rtvb_tpu_torch/csrc/tri_kernel.cu",
+            "rtvb_tpu/ops/tri_kernel.py:142"),
+    "texture": ("rtvb_tpu_torch/csrc/texture_kernel.cu",
+                "rtvb_tpu/assets/image_textures.py:507"),
+    "warp": ("rtvb_tpu_torch/csrc/warp_kernel.cu",
+             "rtvb_tpu/ops/warp_kernel.py:160"),
+    "atrous": ("rtvb_tpu_torch/csrc/atrous_kernel.cu",
+               "rtvb_tpu/ops/denoise/atrous_kernel.py:130"),
+}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def sync():
+    import torch
+    torch.cuda.synchronize()
+
+
+def cuda_ms(fn, n: int = 10) -> float:
+    """Median over n runs of one call, timed with CUDA events."""
+    import torch
+    fn()
+    sync()
+    times = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def card_line() -> str:
+    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    check(res.returncode == 0, f"nvidia-smi failed: {res.stderr}")
+    return res.stdout.strip().splitlines()[0]
+
+
+def errors(a, b):
+    """(max abs, max rel) error of tensor a against reference b."""
+    import torch
+    a = a.detach().double().cpu()
+    b = b.detach().double().cpu()
+    finite = torch.isfinite(b)
+    check(bool((torch.isfinite(a) == finite).all()), "non-finite mismatch")
+    d = (a - b).abs()[finite]
+    if d.numel() == 0:
+        return 0.0, 0.0
+    rel = d / b.abs()[finite].clamp(min=1e-6)
+    return float(d.max()), float(rel.max())
+
+
+class Report:
+    def __init__(self):
+        self.cases = []
+
+    def case(self, kernel, name, kern_fn, plain_fn, compare, n=10):
+        """compare(kernel_out, plain_out) → (max_abs, max_rel); raises on
+        a disagreement beyond the case's stated tolerance."""
+        k_out = kern_fn()
+        p_out = plain_fn()
+        sync()
+        abs_e, rel_e = compare(k_out, p_out)
+        ms = cuda_ms(kern_fn, n)
+        plain_ms = cuda_ms(plain_fn, n)
+        self.cases.append(dict(kernel=kernel, case=name, max_abs_err=abs_e,
+                               max_rel_err=rel_e, ms=ms, plain_ms=plain_ms))
+        log(f"  {kernel:8s} {name:34s} max_abs {abs_e:.3g}  max_rel "
+            f"{rel_e:.3g}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
+
+
+def exact(fields):
+    """Comparison that requires bit equality of the named record fields."""
+    import torch
+
+    def cmp(a, b):
+        for f in fields:
+            x, y = getattr(a, f), getattr(b, f)
+            if x.dtype == torch.float32:
+                x, y = x.contiguous().view(torch.int32), \
+                    y.contiguous().view(torch.int32)
+            bad = int((x != y).sum())
+            check(bad == 0, f"{f}: {bad} values differ")
+        return 0.0, 0.0
+    return cmp
+
+
+def kernel_cases(eng, rep: Report):
+    """K1, K2, K3, K5, K6 against their plain versions on CUDA inputs taken
+    from the engine's frame (its size, half of it for the GI waves)."""
+    import torch
+    from rtvb_tpu_torch.assets import image_textures as it
+    from rtvb_tpu_torch.assets import textures
+    from rtvb_tpu_torch.core.camera import camera_rays
+    from rtvb_tpu_torch.ops import dda, triangles, warp_kernel
+    from rtvb_tpu_torch.ops import mathutil as m
+    from rtvb_tpu_torch.ops.alias_table import take
+    from rtvb_tpu_torch.ops.denoise import atrous_kernel, passes
+    from rtvb_tpu_torch.ops.pack import pack2
+
+    dev = eng.device
+    H, W = eng.height, eng.width
+    tables, tp = eng._tables, eng._tp
+    gen = torch.Generator(device="cpu").manual_seed(7)
+
+    def rnd(*shape, lo=0.0, hi=1.0):
+        return (torch.rand(*shape, generator=gen) * (hi - lo) + lo).to(dev)
+
+    # --- K1: camera rays (bounce 0), random rays (GI bounces, 960×540),
+    # shadow rays toward the sun (any hit)
+    o, d = camera_rays(eng.camera, W, H)
+    o = tuple(c.contiguous() for c in o)
+    d = tuple(c.contiguous() for c in d)
+    rec = dda.trace(o, d, tables, tp)
+    hit_frac = float(rec.hit.float().mean())
+    log(f"primary hit fraction at the scene camera: {hit_frac:.4f}")
+    check(0.5 < hit_frac < 0.9, f"hit fraction {hit_frac} off 0.7")
+    closest = exact(dda.HitRecord._fields)
+    rep.case("trace", f"closest, camera rays {W}x{H}",
+             lambda: dda.trace_cuda(o, d, tables, tp),
+             lambda: dda.trace_plain(o, d, tables, tp), closest)
+    h2, w2 = H // 2, W // 2
+    ro = (rnd(h2, w2, hi=64.0), rnd(h2, w2, lo=1.0, hi=20.0),
+          rnd(h2, w2, hi=64.0))
+    rd = torch.randn(3, h2, w2, generator=gen).to(dev)
+    rd = rd / rd.norm(dim=0, keepdim=True)
+    rd = tuple(c.contiguous() for c in rd)
+    rep.case("trace", f"closest, random rays {w2}x{h2}",
+             lambda: dda.trace_cuda(ro, rd, tables, tp),
+             lambda: dda.trace_plain(ro, rd, tables, tp), closest)
+    p = m.add(o, m.scale(d, torch.where(rec.hit, rec.t, 0.0)))
+    n = (rec.nx, rec.ny, rec.nz)
+    so = tuple(c.contiguous() for c in m.add(p, m.scale(n, 1e-3)))
+    sun = tuple(torch.full_like(p[0], float(c)) for c in
+                eng.sky_state.sun_dir)
+    cap = torch.where(rec.hit, 1e30, 0.0).contiguous()
+    anyh = exact(("hit", "t"))
+    rep.case("trace", f"any hit, sun shadow rays {W}x{H}",
+             lambda: dda.trace_cuda(so, sun, tables, tp, cap, True),
+             lambda: dda.trace_plain(so, sun, tables, tp, cap, True), anyh)
+    rcap = rnd(h2, w2, lo=0.5, hi=60.0)
+    rep.case("trace", f"any hit, random rays {w2}x{h2}",
+             lambda: dda.trace_cuda(ro, rd, tables, tp, rcap, True),
+             lambda: dda.trace_plain(ro, rd, tables, tp, rcap, True), anyh)
+
+    # --- K2: the flower soup against the primary rays, capped at the voxel
+    tri = eng.entity_buffers().tri_packed
+    t_cap = rec.t.contiguous()
+    rep.case("tri", f"{tri.shape[0]} tris, camera rays {W}x{H}",
+             lambda: triangles.intersect_packed_cuda(o, d, tri, t_cap),
+             lambda: triangles.intersect_packed_plain(o, d, tri, t_cap),
+             exact(triangles.TriHit._fields))
+    rep.case("tri", f"{tri.shape[0]} tris, random rays {w2}x{h2}",
+             lambda: triangles.intersect_packed_cuda(ro, rd, tri),
+             lambda: triangles.intersect_packed_plain(ro, rd, tri),
+             exact(triangles.TriHit._fields))
+
+    # --- K3: the authored atlas at the frame's primary-hit lod field
+    mats = eng.materials
+    img = take(mats.image_id, rec.mi).contiguous()
+    u, v = textures.triplanar_uv(p[0], p[1], p[2], *n)
+    uvs = take(mats.uv_scale, rec.mi)
+    u = (u * uvs).contiguous()
+    v = (v * uvs).contiguous()
+    inc = torch.clamp(torch.abs(m.dot(n, d)), min=0.25)
+    lod = rec.t * eng.camera.pixel_cone_spread(H) * 8.0 / inc
+    atlas = eng.texture_atlas
+    t_count = it.atlas_count(atlas)
+    tid = torch.clamp(img, -1, t_count - 1).contiguous()
+    lvl = it.level_from_lod(lod).contiguous()
+    use = tid >= 0
+    check(float(use.float().mean()) > 0.3, "too few textured pixels")
+
+    def tex_cmp(a, b):
+        out = (0.0, 0.0)
+        for c in range(6):
+            x = torch.where(use, a[c], 0.0)
+            y = torch.where(use, b[c], 0.0)
+            e = errors(x, y)
+            check(e[0] <= 1e-6, f"texture channel {c}: max abs {e[0]}")
+            out = (max(out[0], e[0]), max(out[1], e[1]))
+        return out
+    rep.case("texture", f"{t_count} textures, {W}x{H} lod field",
+             lambda: it._sample_cuda(atlas, t_count, tid, u, v, lvl),
+             lambda: it._sample_ref(atlas, t_count, tid, u, v, lvl), tex_cmp)
+
+    # --- K5: ReSTIR reservoirs (nearest, bitwise) and the denoiser history
+    # (bilinear, 6 bf16 pairs) under a camera-pan warp
+    yy, xx = torch.meshgrid(torch.arange(H, device=dev, dtype=torch.float32),
+                            torch.arange(W, device=dev, dtype=torch.float32),
+                            indexing="ij")
+    sy = (yy + 3.3 + 0.8 * torch.sin(xx / 97.0)).contiguous()
+    sx = (xx - 7.6 + 0.8 * torch.cos(yy / 61.0)).contiguous()
+    bits = torch.randint(-2 ** 31, 2 ** 31 - 1, (8, H, W), generator=gen,
+                         dtype=torch.int32).to(dev)
+    hist8 = bits.view(torch.float32)
+    rep.case("warp", f"nearest, 8 planes {W}x{H}",
+             lambda: warp_kernel._warp_cuda(hist8, sy, sx, False, 0),
+             lambda: warp_kernel.warp_nearest_ref(hist8, sy, sx),
+             lambda a, b: _cmp_pairs(a, b, exact_bits=True))
+    vals = rnd(13, H, W, lo=-4.0, hi=4.0)
+    hist7 = torch.stack([pack2(vals[2 * c], vals[2 * c + 1])
+                         for c in range(6)] + [vals[12]]).contiguous()
+    rep.case("warp", f"bilinear, 7 planes (6 pairs) {W}x{H}",
+             lambda: warp_kernel._warp_cuda(hist7, sy, sx, True, 6),
+             lambda: warp_kernel.warp_bilinear_ref(hist7, sy, sx, 6),
+             lambda a, b: _cmp_pairs(a, b, exact_bits=False, tol=1e-6))
+
+    # --- K6: the denoiser's à-trous passes on a real G-buffer
+    g, _ = eng.render_gbuffers()
+    illum = torch.stack(g.illum, dim=-1).contiguous()
+    normal = torch.stack(g.normal, dim=-1).contiguous()
+    depth = g.depth.contiguous()
+    var = rnd(H, W, hi=0.1)
+    dn = eng.settings.denoising
+    phis = (dn.phi_luminance, dn.phi_normal, dn.phi_depth)
+
+    def atrous_cmp(a, b):
+        e1 = errors(a[0], b[0])
+        e2 = errors(a[1], b[1])
+        check(e1[1] <= 1e-5 or e1[0] <= 1e-6, f"atrous illum {e1}")
+        check(e2[1] <= 1e-5 or e2[0] <= 1e-7, f"atrous var {e2}")
+        return max(e1[0], e2[0]), max(e1[1], e2[1])
+    for step in (1, 2, 4, 8, 16):
+        rep.case("atrous", f"step {step}, {W}x{H}",
+                 lambda s=step: atrous_kernel._atrous_cuda(
+                     illum, var, depth, normal, s, *phis),
+                 lambda s=step: passes.atrous_pass_plain(
+                     illum, var, depth, normal, s, *phis), atrous_cmp)
+
+
+def _cmp_pairs(a, b, exact_bits: bool, tol: float = 0.0):
+    """(out, valid) of the warp kernel against the plain version."""
+    import torch
+    check(bool((a[1] == b[1]).all()), "warp valid mask differs")
+    if exact_bits:
+        bad = int((a[0].view(torch.int32) != b[0].view(torch.int32)).sum())
+        check(bad == 0, f"warp nearest: {bad} words differ")
+        return 0.0, 0.0
+    e = errors(a[0], b[0])
+    check(e[0] <= tol, f"warp bilinear max abs {e[0]}")
+    return e
+
+
+def frame_run(eng, n_warm: int = 2, n_timed: int = 8):
+    """The port's main path: warm-up + timed frames → (median ms, u8)."""
+    out = None
+    for _ in range(n_warm):
+        out = eng.render_realtime_device()
+    sync()
+    times = []
+    for _ in range(n_timed):
+        t0 = time.perf_counter()
+        out = eng.render_realtime_device()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), times, out
+
+
+def _merged_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def profile_frames(eng, n: int = 3) -> dict:
+    """torch.profiler over n frames: host ms per engine stage, device busy
+    share of the window, kernels per frame and the top device kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from rtvb_tpu_torch.render.renderer import STAGES
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            eng.render_realtime_device()
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    # device work: kernels, copies, sets (not the ranges' device mirrors)
+    dev = [e for e in events if e.device_type == DeviceType.CUDA
+           and e.name not in STAGES]
+    busy_ms = _merged_us([(e.time_range.start, e.time_range.end)
+                          for e in dev]) / 1e3
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    span_ms = (max(e.time_range.end for e in host)
+               - min(e.time_range.start for e in host)) / 1e3
+    # a device event belongs to the stage whose host range began last
+    # before it started (exact while the device does not lag the host)
+    ranges = sorted((e.time_range.start, e.name) for e in host
+                    if e.name in STAGES)
+    starts = [s for s, _ in ranges]
+    per_stage: dict = {name: [] for name in STAGES}
+    for k in dev:
+        i = bisect.bisect_right(starts, k.time_range.start) - 1
+        if i >= 0:
+            per_stage[ranges[i][1]].append(
+                (k.time_range.start, k.time_range.end))
+    stages = {}
+    for name in STAGES:
+        rng = [e for e in host if e.name == name]
+        check(len(rng) == n, f"profiler saw {len(rng)} {name} ranges")
+        stages[name] = dict(
+            host_ms=sum(e.time_range.elapsed_us() for e in rng) / n / 1e3,
+            device_busy_ms=_merged_us(per_stage[name]) / 1e3 / n,
+            device_events_per_frame=len(per_stage[name]) / n)
+    by_name: dict = {}
+    for e in dev:
+        by_name.setdefault(e.name, [0, 0.0])
+        by_name[e.name][0] += 1
+        by_name[e.name][1] += e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
+    return dict(frames=n, wall_ms_per_frame=wall_ms / n,
+                span_ms=span_ms, device_busy_ms=busy_ms,
+                device_busy_share=busy_ms / span_ms if span_ms else None,
+                device_kernels_per_frame=len(dev) / n, stages=stages,
+                top_kernels=[dict(name=k[:80], count=c, ms_per_frame=t / n)
+                             for k, (c, t) in top])
+
+
+def copy_states(src, dst):
+    """Carry the feedback states of one engine to another device."""
+    from rtvb_tpu_torch.render.denoiser import DenoiserState
+    from rtvb_tpu_torch.render.postprocess import PostState
+    from rtvb_tpu_torch.render.restir import ReSTIRState
+    dev = dst.device
+    ds = src.denoiser_state
+    dst.denoiser_state = DenoiserState(
+        *(getattr(ds, f).to(dev) for f in DenoiserState._fields[:-1]),
+        bootstrapped=ds.bootstrapped)
+    dst.restir_state = ReSTIRState(data=src.restir_state.data.to(dev))
+    dst.post_state = PostState(exposure=src.post_state.exposure.to(dev))
+    dst.frame_index = src.frame_index
+
+
+def whole_frame_vs_cpu(width: int, height: int):
+    """Frames 1 and 2 with the kernels on the card against the plain
+    versions on the CPU; frame 2 starts both from the card's frame-1
+    state.  Bars of tests/test_torch_slice.py."""
+    import torch
+    from rtvb_tpu_torch.render.renderer import Engine, slice_settings
+    st = slice_settings(width, height)
+    gpu = Engine(settings=st, device="cuda")
+    cpu = Engine(settings=st, device="cpu")
+    results = []
+    for frame in range(2):
+        if frame == 1:
+            copy_states(gpu, cpu)
+        gpu._ensure_states()
+        cpu._ensure_states()
+        if frame == 0:
+            gg, _ = gpu.render_gbuffers()
+            cg, _ = cpu.render_gbuffers()
+            planes = [("depth", gg.depth, cg.depth),
+                      ("roughness", gg.roughness, cg.roughness),
+                      ("motion_u", gg.motion_u, cg.motion_u),
+                      ("motion_v", gg.motion_v, cg.motion_v)]
+            for name in ("normal", "albedo"):
+                for i in range(3):
+                    planes.append((f"{name}{i}", getattr(gg, name)[i],
+                                   getattr(cg, name)[i]))
+            for name, a, b in planes:
+                a, b = a.cpu().numpy(), b.numpy()
+                frac = float(np.mean(np.isclose(a, b, rtol=1e-4, atol=1e-4)))
+                check(frac >= 0.999, f"G-buffer {name}: {frac} within 1e-4")
+        a = gpu.render_realtime()
+        b = cpu.render_realtime()
+        dd = np.abs(a.astype(np.int32) - b.astype(np.int32))
+        mean_d = float(dd.mean())
+        frac3 = float(np.mean(dd.max(axis=-1) <= 3))
+        log(f"  frame {frame + 1} at {width}x{height}: u8 mean |d| "
+            f"{mean_d:.4f}, pixels within 3/255 {frac3:.4f}")
+        check(mean_d <= 1.0 and frac3 >= 0.90,
+              f"whole frame {frame + 1} differs: {mean_d}, {frac3}")
+        results.append(dict(frame=frame + 1, mean_abs_u8=mean_d,
+                            frac_within_3=frac3))
+    return results
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from rtvb_tpu_torch import kernels as K
+    os.makedirs(LOG_DIR, exist_ok=True)
+    card = card_line()
+    log(card)
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+
+    t0 = time.perf_counter()
+    K.LIBRARY.get()
+    log(f"kernel build: {time.perf_counter() - t0:.1f} s "
+        f"(nvcc {K.LIBRARY.build_seconds:.1f} s)")
+    with open(os.path.join(LOG_DIR, "nvcc_ptxas.log"), "w") as f:
+        f.write(K.LIBRARY.build_log or "")
+
+    from rtvb_tpu_torch.render.renderer import Engine, slice_settings
+    fw, fh = FRAME
+    t0 = time.perf_counter()
+    eng = Engine(settings=slice_settings(fw, fh), device="cuda")
+    log(f"engine init {fw}x{fh}: {time.perf_counter() - t0:.1f} s, "
+        f"textures {len(eng.texture_atlas_names)}, lights {eng.lights.count}")
+
+    log("kernels against their plain versions (CUDA events, median of 10):")
+    rep = Report()
+    kernel_cases(eng, rep)
+
+    # the main path: counts are reset right before and read right after
+    K.reset_launch_counts()
+    frame_ms, times, out = frame_run(eng)
+    counts = K.launch_counts()
+    log(f"frame {fw}x{fh} (1 spp, denoised, u8): median {frame_ms:.3f} ms "
+        f"over {len(times)} frames {[round(t, 3) for t in times]}")
+    log(f"launch counts over the main-path run: {counts}")
+    for name in KERNELS:
+        check(counts.get(name, 0) > 0, f"kernel {name} never launched")
+    u8 = out.cpu().numpy()
+    check(u8.shape == (fh, fw, 3) and u8.dtype == np.uint8,
+          f"frame shape {u8.shape} {u8.dtype}")
+    check(u8.std() > 1.0, "frame is constant")
+    check(bool(torch.isfinite(out.float()).all()), "frame not finite")
+    log(f"frame u8: shape {u8.shape}, mean {u8.mean():.2f}, std "
+        f"{u8.std():.2f}")
+
+    prof = profile_frames(eng)
+    log(f"profile of {prof['frames']} frames {fw}x{fh}: "
+        f"{prof['wall_ms_per_frame']:.3f} ms/frame under the profiler, "
+        f"device busy {prof['device_busy_share']:.4f} of the window, "
+        f"{prof['device_kernels_per_frame']:.0f} device ops/frame")
+    for name, st in prof["stages"].items():
+        log(f"  {name:15s} host {st['host_ms']:.3f} ms  device busy "
+            f"{st['device_busy_ms']:.3f} ms  "
+            f"{st['device_events_per_frame']:.0f} device ops")
+    for k in prof["top_kernels"][:8]:
+        log(f"  {k['ms_per_frame']:.4f} ms/frame  x{k['count']}  {k['name']}")
+
+    log("whole frame, kernels on the card vs plain versions on the CPU:")
+    whole = whole_frame_vs_cpu(*VS_CPU)
+
+    kernels = []
+    for name, (src, replaces) in KERNELS.items():
+        cs = [c for c in rep.cases if c["kernel"] == name]
+        main_case = cs[0]
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=counts[name],
+            max_abs_err=max(c["max_abs_err"] for c in cs),
+            ms=main_case["ms"], plain_ms=main_case["plain_ms"]))
+    with open(os.path.join(LOG_DIR, "chip_smoke.json"), "w") as f:
+        json.dump(dict(card=card, frame=FRAME, frame_ms=frame_ms,
+                       frame_ms_all=times,
+                       launches=counts, cases=rep.cases, whole_frame=whole,
+                       profile=prof, kernels=kernels), f, indent=1)
+    log(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        rc = main()
+    except Exception:       # report any failure and exit non-zero
+        traceback.print_exc()
+        rc = 1
+    sys.exit(rc)

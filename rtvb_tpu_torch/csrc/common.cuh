@@ -1,0 +1,61 @@
+// Shared helpers of the rtvb_tpu_torch kernels (plain C interface, bound
+// with ctypes by rtvb_tpu_torch/kernels.py).
+//
+// The library is built with --fmad=false: every product is rounded before
+// the add that follows, exactly like the separate elementwise ops of each
+// kernel's plain PyTorch version, so a kernel and its plain version agree
+// to the bit wherever both call the same math functions.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#define RTVB_EXPORT extern "C" __attribute__((visibility("default")))
+
+namespace rtvb {
+
+constexpr float BIG = 1e30f;
+
+// floor → int32 with the out-of-range values saturated at ±2^30 (the plain
+// versions' floor_i32; every caller clips far inside that range)
+__device__ __forceinline__ int floor_i32(float x) {
+  float f = floorf(x);
+  f = fminf(fmaxf(f, -1073741824.0f), 1073741824.0f);
+  return static_cast<int>(f);
+}
+
+__device__ __forceinline__ int clampi(int v, int lo, int hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+
+__device__ __forceinline__ float clampf(float v, float lo, float hi) {
+  return fminf(fmaxf(v, lo), hi);
+}
+
+// Python-style (non-negative) modulo for s > 0
+__device__ __forceinline__ int pymod(int a, int s) {
+  int r = a % s;
+  return r < 0 ? r + s : r;
+}
+
+// bf16 pair carried in one 32-bit word: low half → a, high half → b
+__device__ __forceinline__ float bf16_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+
+__device__ __forceinline__ float bf16_hi(uint32_t w) {
+  return __uint_as_float(w & 0xFFFF0000u);
+}
+
+__device__ __forceinline__ float luminance(float r, float g, float b) {
+  return 0.2126f * r + 0.7152f * g + 0.0722f * b;
+}
+
+inline int blocks_for(long long n, int threads) {
+  return static_cast<int>((n + threads - 1) / threads);
+}
+
+// a launch that was refused never runs; report it to the wrapper
+inline int launch_status() { return static_cast<int>(cudaGetLastError()); }
+
+}  // namespace rtvb

@@ -1,0 +1,134 @@
+"""State carried across from the JAX package.
+
+Each function takes one of the JAX package's state objects (any NamedTuple
+whose leaves convert with ``np.asarray`` — this module never imports jax)
+and returns the port's counterpart on `device`, bit for bit: packed planes
+(ReSTIR reservoirs, texture atlas) keep their 32-bit patterns, and the
+TPU's (R, 128) world tables are flattened to (X·Z,).  Tests use it to
+start both implementations from identical state.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .assets.image_textures import TextureAtlas
+from .assets.materials import MaterialTable, material_table_from_numpy
+from .core.camera import Camera
+from .render.denoiser import DenoiserState
+from .render.postprocess import PostState
+from .render.restir import ReSTIRState
+from .render.sky import SkyState, sky_state_from_numpy
+from .world.lighting import LightTable, light_table_from_numpy
+from .world.voxel import VoxelWorld
+
+
+def _np(a) -> np.ndarray:
+    return np.array(a)          # a writable host copy
+
+
+def _t(a, device, dtype=None) -> torch.Tensor:
+    arr = np.ascontiguousarray(_np(a))
+    if arr.dtype == np.uint32:
+        arr = arr.view(np.int32)     # u32 bit patterns ride as int32
+    t = torch.from_numpy(arr).to(device)
+    return t if dtype is None else t.to(dtype)
+
+
+def world(jw, device="cpu") -> VoxelWorld:
+    """VoxelWorld: (R, 128) tables → flat (X·Z,), uint32 → int32 bits."""
+    return VoxelWorld(
+        blocks=_t(jw.blocks, device),
+        schema=_t(_np(jw.schema).reshape(-1), device),
+        colmask=_t(_np(jw.colmask).reshape(-1), device),
+        exc_mask=_t(_np(jw.exc_mask).reshape(-1), device),
+        exc_key=_t(jw.exc_key, device, torch.int32),
+        exc_id=_t(jw.exc_id, device, torch.int32),
+        df_super=_t(_np(jw.df_super).reshape(-1), device, torch.int32),
+        maxh_super=_t(_np(jw.maxh_super).reshape(-1), device, torch.int32))
+
+
+def materials(jm, device="cpu") -> MaterialTable:
+    arrays = {f: _np(getattr(jm, f)) for f in MaterialTable._fields}
+    for f in ("texture_id", "image_id", "block_to_mat"):
+        arrays[f] = arrays[f].astype(np.int32)
+    for f in ("albedo", "roughness", "metallic", "translucency", "emissive",
+              "uv_scale"):
+        arrays[f] = arrays[f].astype(np.float32)
+    return material_table_from_numpy(arrays, device)
+
+
+def lights(jl, device="cpu") -> LightTable:
+    arrays = {f: _np(getattr(jl, f)) for f in LightTable._fields}
+    arrays["count"] = int(arrays["count"])
+    arrays["ent"] = arrays["ent"].astype(bool)
+    arrays["active"] = arrays["active"].astype(bool)
+    return light_table_from_numpy(arrays, device)
+
+
+def sky(js, device="cpu") -> SkyState:
+    arrays = {f: getattr(js, f) for f in SkyState._fields if f != "host"}
+    arrays["sun_dir"] = np.array([float(v) for v in js.sun_dir], np.float32)
+    for f in ("turbidity", "sky_intensity", "sun_intensity",
+              "cos_sun_radius"):
+        arrays[f] = float(_np(arrays[f]))
+    for f in ("env_prob", "env_pmf", "basis_p", "basis_m", "sun_poly"):
+        arrays[f] = _np(arrays[f]).astype(np.float32)
+    arrays["env_alias"] = _np(arrays["env_alias"]).astype(np.int32)
+    return sky_state_from_numpy(arrays, device)
+
+
+def atlas(ja, device="cpu") -> TextureAtlas:
+    return TextureAtlas(lo=_t(ja.lo, device), hi=_t(ja.hi, device))
+
+
+def camera(jc, device="cpu") -> Camera:
+    return Camera(**{f: torch.tensor(float(_np(getattr(jc, f))),
+                                     dtype=torch.float32, device=device)
+                     for f in Camera._fields})
+
+
+def restir_state(jr, device="cpu") -> ReSTIRState:
+    data = np.ascontiguousarray(_np(jr.data))
+    return ReSTIRState(data=torch.from_numpy(
+        data.view(np.int32).copy()).to(device).view(torch.float32))
+
+
+def denoiser_state(jd, device="cpu") -> DenoiserState:
+    return DenoiserState(
+        slow=_t(jd.slow, device), fast=_t(jd.fast, device),
+        moments=_t(jd.moments, device), hist_len=_t(jd.hist_len, device),
+        prev_depth=_t(jd.prev_depth, device),
+        prev_normal=_t(jd.prev_normal, device),
+        bootstrapped=bool(_np(jd.bootstrapped)))
+
+
+def post_state(jp, device="cpu") -> PostState:
+    return PostState(exposure=torch.tensor(float(_np(jp.exposure)),
+                                           dtype=torch.float32,
+                                           device=device))
+
+
+def engine_from_jax(jax_engine, engine):
+    """Overwrite the port engine's world, tables, sky, atlas, cameras and
+    feedback states with the JAX engine's (same settings assumed)."""
+    from .ops.dda import trace_tables
+    dev = engine.device
+    engine.world = world(jax_engine.world, dev)
+    engine.materials = materials(jax_engine.materials, dev)
+    engine.lights = lights(jax_engine.lights, dev)
+    engine.sky_state = sky(jax_engine.sky_state, dev)
+    if jax_engine.texture_atlas is not None:
+        engine.texture_atlas = atlas(jax_engine.texture_atlas, dev)
+    engine.camera = camera(jax_engine.camera, dev)
+    engine.history_camera = camera(jax_engine.history_camera, dev)
+    engine.frame_index = int(jax_engine.frame_index)
+    engine.restir_state = (None if jax_engine.restir_state is None
+                           else restir_state(jax_engine.restir_state, dev))
+    engine.denoiser_state = (None if jax_engine.denoiser_state is None
+                             else denoiser_state(jax_engine.denoiser_state,
+                                                 dev))
+    engine.post_state = post_state(jax_engine.post_state, dev)
+    engine._tables = trace_tables(engine.world, engine.materials)
+    engine._entity_cache = None
+    return engine

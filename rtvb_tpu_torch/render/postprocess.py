@@ -1,0 +1,190 @@
+"""Post-processing: auto-exposure → bloom → vignette → tone map →
+[upscale] → RCAS sharpen → overlay (port of rtvb_tpu/render/postprocess.py
+on the scale-1 path; EASU upscaling is still to port, see ROADMAP)."""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from rtvb_tpu.core.config import PostProcessingSettings, ToneMappingSettings
+
+from ..ops import mathutil as m
+
+
+class PostState(NamedTuple):
+    exposure: torch.Tensor     # () adapted log2 exposure
+
+
+def initial_post_state(device="cpu") -> PostState:
+    return PostState(exposure=torch.zeros((), dtype=torch.float32,
+                                          device=device))
+
+
+def _box_down4(img):
+    """4×4 average pool of an (H, W, C) image with H, W multiples of 4."""
+    h, w = img.shape[0] // 4, img.shape[1] // 4
+    r = img.reshape(h, 4, w, 4, *img.shape[2:]).sum(dim=(1, 3))
+    return r * (1.0 / 16.0)
+
+
+def auto_exposure(rgb, state: PostState, cfg: PostProcessingSettings,
+                  dt: float):
+    """Histogram of 4×4-pooled log luminance → windowed-percentile mean →
+    exponential adaptation toward mid grey."""
+    h4 = (rgb.shape[0] // 4) * 4
+    w4 = (rgb.shape[1] // 4) * 4
+    small = _box_down4(rgb[:h4, :w4])
+    lum = m.luminance(small[..., 0], small[..., 1], small[..., 2])
+    log_lum = torch.log2(torch.clamp(lum, min=1e-6))
+    lo, hi = cfg.exposure_min_log, cfg.exposure_max_log
+    nbins = 64
+    t = torch.clamp((log_lum - lo) / (hi - lo), 0.0, 1.0)
+    bins = torch.clamp((t * nbins).to(torch.int32), 0, nbins - 1)
+    hist = torch.bincount(bins.reshape(-1).long(), minlength=nbins).to(
+        torch.float32)
+    cdf = torch.cumsum(hist, 0) / torch.clamp(hist.sum(), min=1.0)
+    dev = rgb.device
+    centers = lo + (torch.arange(nbins, device=dev) + 0.5) / nbins * (hi - lo)
+    in_win = (cdf >= cfg.exposure_low_percentile) & \
+        (cdf <= cfg.exposure_high_percentile)
+    w = torch.where(in_win, hist, 0.0)
+    avg_log = (w * centers).sum() / torch.clamp(w.sum(), min=1.0)
+    target = -avg_log - 1.0
+    adapt = 1.0 - float(torch.exp(torch.tensor(-cfg.exposure_adapt_speed * dt,
+                                               dtype=torch.float32)))
+    return state.exposure + (target - state.exposure) * adapt
+
+
+def _box_blur(img, radius: int, axis: int):
+    acc = img
+    for r in range(1, radius + 1):
+        acc = acc + torch.roll(img, r, dims=axis) + torch.roll(img, -r,
+                                                               dims=axis)
+    return acc / (2 * radius + 1)
+
+
+def bloom(rgb, cfg: PostProcessingSettings):
+    rgb_c = torch.clamp(rgb, max=64.0)
+    lum = m.luminance(rgb_c[..., 0], rgb_c[..., 1], rgb_c[..., 2])
+    k = torch.clamp(lum - cfg.bloom_threshold, min=0.0) / \
+        torch.clamp(lum, min=1e-6)
+    bright = rgb_c * k[..., None]
+    h, w = rgb.shape[:2]
+    h4, w4 = h // 4, w // 4
+    small = _box_down4(bright[:h4 * 4, :w4 * 4])
+    small = _box_blur(_box_blur(small, 4, 0), 4, 1)
+    small = _box_blur(_box_blur(small, 2, 0), 2, 1)
+    up = small.repeat_interleave(4, dim=0).repeat_interleave(4, dim=1)
+    if h > h4 * 4 or w > w4 * 4:
+        rows = torch.clamp(torch.arange(h, device=rgb.device), max=h4 * 4 - 1)
+        cols = torch.clamp(torch.arange(w, device=rgb.device), max=w4 * 4 - 1)
+        up = up.index_select(0, rows).index_select(1, cols)
+    return rgb + cfg.bloom_intensity * up
+
+
+def vignette(rgb, cfg: PostProcessingSettings):
+    h, w = rgb.shape[:2]
+    dev = rgb.device
+    y = (torch.arange(h, device=dev) / h - 0.5)[:, None] * 2.0
+    x = (torch.arange(w, device=dev) / w - 0.5)[None, :] * 2.0
+    r2 = x * x + y * y
+    fall = 1.0 - cfg.vignette_strength * torch.clamp(r2 * 0.7, 0.0, 1.0)
+    return rgb * fall[..., None]
+
+
+def _aces(x):
+    a, b, c, d, e = 2.51, 0.03, 2.43, 0.59, 0.14
+    return torch.clamp((x * (a * x + b)) / (x * (c * x + d) + e), 0.0, 1.0)
+
+
+def _uncharted2(x, white: float):
+    def f(v):
+        A, Bc, C, D, E, F = 0.15, 0.50, 0.10, 0.20, 0.02, 0.30
+        return ((v * (A * v + C * Bc) + D * E) / (v * (A * v + Bc) + D * F)) \
+            - E / F
+    fw = f(torch.tensor(white, dtype=torch.float32, device=x.device))
+    return torch.clamp(f(x) / torch.clamp(fw, min=1e-6), 0.0, 1.0)
+
+
+def tone_map(rgb, tm: ToneMappingSettings, exposure_log2):
+    x = rgb * torch.exp2(exposure_log2 + tm.exposure_compensation)
+    if tm.curve == "aces":
+        y = _aces(x)
+    elif tm.curve == "uncharted2":
+        y = _uncharted2(x, tm.white_point)
+    elif tm.curve == "reinhard":
+        y = torch.clamp(x / (1.0 + x), 0.0, 1.0)
+    else:
+        y = torch.clamp(x, 0.0, 1.0)
+    y = tm.lift + (tm.gain - tm.lift) * y
+    y = torch.clamp(0.5 + (y - 0.5) * tm.contrast, 0.0, 1.0)
+    grey = m.luminance(y[..., 0], y[..., 1], y[..., 2])[..., None]
+    y = torch.clamp(grey + (y - grey) * tm.saturation, 0.0, 1.0)
+    return torch.where(y <= 0.0031308, 12.92 * y,
+                       1.055 * torch.pow(y, 1 / 2.4) - 0.055)
+
+
+def easu(img, out_h: int, out_w: int):
+    """EASU upscale; only the equal-size identity is ported so far."""
+    if img.shape[0] == out_h and img.shape[1] == out_w:
+        return img
+    raise NotImplementedError(
+        "EASU upscaling (render_scale < 1) is still to port (ROADMAP: K7)")
+
+
+def upscale(img, out_h: int, out_w: int, mode: str = "easu"):
+    if img.shape[0] == out_h and img.shape[1] == out_w:
+        return img
+    if mode == "easu":
+        return easu(img, out_h, out_w)
+    raise NotImplementedError(
+        f"{mode} upscaling is still to port (ROADMAP: K7 and the rungs)")
+
+
+def sharpen(img, strength: float):
+    """Contrast-adaptive sharpen (RCAS-style), wrap-around neighbours."""
+    up = torch.roll(img, -1, 0)
+    dn = torch.roll(img, 1, 0)
+    lf = torch.roll(img, -1, 1)
+    rt = torch.roll(img, 1, 1)
+    mn = torch.minimum(torch.minimum(up, dn), torch.minimum(lf, rt))
+    mn = torch.minimum(mn, img)
+    mx = torch.maximum(torch.maximum(up, dn), torch.maximum(lf, rt))
+    mx = torch.maximum(mx, img)
+    amp = m.sqrt(torch.clamp(torch.minimum(mn, 1.0 - mx)
+                                 / torch.clamp(mx, min=1e-4), 0.0, 1.0))
+    a = amp * strength * 0.2
+    return torch.clamp(img * (1.0 + 4.0 * a) - (up + dn + lf + rt) * a,
+                       0.0, 1.0)
+
+
+def compose_overlay(rgb, overlay_u8):
+    ov = overlay_u8.to(torch.float32) * (1.0 / 255.0)
+    a = ov[..., 3:4]
+    return rgb * (1.0 - a) + ov[..., :3] * a
+
+
+def run(rgb_linear, state: PostState, pp: PostProcessingSettings,
+        tm: ToneMappingSettings, dt: float, out_h: int, out_w: int,
+        overlay_u8=None):
+    """(H, W, 3) linear HDR → (out_h, out_w, 3) display sRGB in [0, 1]."""
+    if pp.lens_flare:
+        raise NotImplementedError("lens flare is still to port (ROADMAP)")
+    if pp.crosshair:
+        raise NotImplementedError("the crosshair is still to port (ROADMAP)")
+    exp = auto_exposure(rgb_linear, state, pp, dt) if pp.auto_exposure \
+        else state.exposure
+    x = rgb_linear
+    if pp.bloom:
+        x = bloom(x, pp)
+    if pp.vignette:
+        x = vignette(x, pp)
+    y = tone_map(x, tm, exp)
+    if pp.upscale != "none":
+        y = upscale(y, out_h, out_w, pp.upscale)
+    if pp.sharpen:
+        y = sharpen(y, pp.sharpen_strength)
+    if overlay_u8 is not None:
+        y = compose_overlay(y, overlay_u8)
+    return y, PostState(exposure=exp)

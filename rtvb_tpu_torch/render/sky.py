@@ -1,0 +1,232 @@
+"""Analytic daylight sky + sun (port of rtvb_tpu/render/sky.py).
+
+The exact spectral model runs in numpy at sun-change time
+(render/sky_spectral.py); per-pixel paths evaluate the fitted 12-function
+RGB basis and the exact degree-5 sun-disk polynomial.  The per-frame
+scalars are kept both as tensors (interop, state) and as host floats
+(`SkyState.host`) so the per-pixel formulas broadcast plain numbers.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from rtvb_tpu.core.config import SkySettings
+
+from ..ops import alias_table as at
+from ..ops import mathutil as m
+from . import sky_spectral as ss
+
+SKY_RADIANCE_SCALE = 0.035
+SPECTRAL_SCALE = 3.0
+SUN_RADIANCE_SCALE = 1.2e5
+ENV_W, ENV_H = 8, 4
+N_BASIS = ss.N_BASIS
+_ENV_OMEGA = 2.0 * math.pi / (ENV_W * ENV_H)
+
+
+class SkyState(NamedTuple):
+    sun_dir: tuple               # 3 × 0-d f32 tensors
+    turbidity: torch.Tensor
+    sky_intensity: torch.Tensor
+    sun_intensity: torch.Tensor
+    cos_sun_radius: torch.Tensor
+    env_prob: torch.Tensor       # (ENV_W*ENV_H,)
+    env_alias: torch.Tensor      # (ENV_W*ENV_H,) i32
+    env_pmf: torch.Tensor
+    basis_p: torch.Tensor        # (4,)
+    basis_m: torch.Tensor        # (N_BASIS, 3)
+    sun_poly: torch.Tensor       # (6, 3)
+    host: dict                   # the same scalars as Python floats
+
+
+def host_scalars(sun_dir, cos_sun_radius, basis_p, basis_m, sun_poly) -> dict:
+    """Python-float copies of the per-pixel constants (exact f32 values)."""
+    f = lambda a: np.asarray(a, np.float32).astype(np.float64).tolist()
+    return dict(sun=[float(v) for v in f(sun_dir)],
+                cos_r=float(f(cos_sun_radius)),
+                basis_p=f(basis_p), basis_m=f(basis_m), sun_poly=f(sun_poly))
+
+
+def sun_direction(time_of_day: float, axis_angle_deg: float):
+    """Sun path east → zenith → west tilted about x (float32)."""
+    t = torch.tensor(time_of_day, dtype=torch.float32)
+    h = (t / 24.0) * 2.0 * math.pi
+    c = torch.cos(h - math.pi * 0.5)
+    s = torch.sin(h - math.pi * 0.5)
+    a = torch.deg2rad(torch.tensor(axis_angle_deg, dtype=torch.float32))
+    return m.normalize((c, s * torch.cos(a), s * torch.sin(a)))
+
+
+def _fit_sky_basis(s: SkySettings, sun_np: np.ndarray):
+    fade = float(np.clip((sun_np[1] + 0.1) * 8.0, 0.0, 1.0))
+    vis = float(np.clip((sun_np[1] + 0.05) * 12.0, 0.0, 1.0))
+    if getattr(s, "model", "hosek") != "hosek":
+        raise NotImplementedError(
+            "the port fits the Hosek–Wilkie sky only; the 'preetham' target "
+            "is still to port (ROADMAP)")
+    params, M = ss.fit_basis(sun_np)
+    M = M * (SPECTRAL_SCALE * s.sky_intensity * fade)
+    poly = ss.sun_rgb_poly(float(sun_np[1]), s.sun_angular_diameter)
+    poly = poly * (SPECTRAL_SCALE * s.sun_intensity * vis)
+    return (np.asarray(params, np.float32), np.asarray(M, np.float32),
+            np.asarray(poly, np.float32))
+
+
+def make_sky_state(s: SkySettings, device="cpu") -> SkyState:
+    sun = sun_direction(s.time_of_day, s.sun_axis_angle)
+    sun_np = np.array([float(v) for v in sun], np.float64)
+    basis_p, basis_m, sun_poly = _fit_sky_basis(s, sun_np)
+    cos_r = torch.cos(torch.deg2rad(
+        torch.tensor(s.sun_angular_diameter, dtype=torch.float32) * 0.5))
+    n_env = ENV_W * ENV_H
+    base = sky_state_from_numpy(dict(
+        sun_dir=np.array([float(v) for v in sun], np.float32),
+        turbidity=s.turbidity, sky_intensity=s.sky_intensity,
+        sun_intensity=s.sun_intensity, cos_sun_radius=float(cos_r),
+        env_prob=np.ones(n_env, np.float32),
+        env_alias=np.zeros(n_env, np.int32),
+        env_pmf=np.full(n_env, 1.0 / n_env, np.float32),
+        basis_p=basis_p, basis_m=basis_m, sun_poly=sun_poly), "cpu")
+    _, pdf = build_sky_map(base, ENV_W, ENV_H)
+    tab = at.build(np.maximum(pdf.numpy().reshape(-1), 1e-9))
+    arrays = {f: getattr(base, f) for f in SkyState._fields}
+    arrays.update(sun_dir=np.array([float(v) for v in sun], np.float32),
+                  env_prob=tab.prob, env_alias=tab.alias, env_pmf=tab.pmf)
+    return sky_state_from_numpy(arrays, device)
+
+
+def sky_state_from_numpy(a: dict, device="cpu") -> SkyState:
+    """SkyState from numpy arrays / floats (also the interop entry)."""
+    def t(v, dtype=torch.float32):
+        if isinstance(v, torch.Tensor):
+            return v.to(device=device, dtype=dtype)
+        return torch.as_tensor(np.asarray(v), dtype=dtype, device=device)
+    sun = np.asarray([float(v) for v in a["sun_dir"]], np.float32)
+    return SkyState(
+        sun_dir=tuple(t(v) for v in sun),
+        turbidity=t(a["turbidity"]), sky_intensity=t(a["sky_intensity"]),
+        sun_intensity=t(a["sun_intensity"]),
+        cos_sun_radius=t(a["cos_sun_radius"]),
+        env_prob=t(a["env_prob"]), env_alias=t(a["env_alias"], torch.int32),
+        env_pmf=t(a["env_pmf"]), basis_p=t(a["basis_p"]),
+        basis_m=t(a["basis_m"]), sun_poly=t(a["sun_poly"]),
+        host=host_scalars(sun, np.asarray(a["cos_sun_radius"]),
+                          np.asarray(_np(a["basis_p"])),
+                          np.asarray(_np(a["basis_m"])),
+                          np.asarray(_np(a["sun_poly"]))))
+
+
+def _np(v):
+    return v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+
+
+# ---------------------------------------------------------------------------
+# Per-pixel evaluation
+# ---------------------------------------------------------------------------
+
+def eval_basis(cos_t, cos_g, gamma, params, M):
+    """Per-pixel RGB from the fitted basis; params/M are host float lists."""
+    f = ss._features(cos_t, cos_g, gamma, params[0], params[1], params[2],
+                     params[3], xp=torch)
+    r = g = b = None
+    for k in range(N_BASIS):
+        r = f[k] * M[k][0] if r is None else r + f[k] * M[k][0]
+        g = f[k] * M[k][1] if g is None else g + f[k] * M[k][1]
+        b = f[k] * M[k][2] if b is None else b + f[k] * M[k][2]
+    return (torch.clamp(r, min=0.0), torch.clamp(g, min=0.0),
+            torch.clamp(b, min=0.0))
+
+
+def sky_radiance(d, sky: SkyState):
+    h = sky.host
+    sun = h["sun"]
+    cos_t = torch.clamp(d[1], 0.0, 1.0)
+    cos_g = torch.clamp(d[0] * sun[0] + d[1] * sun[1] + d[2] * sun[2],
+                        -1.0, 1.0)
+    gamma = torch.arccos(cos_g)
+    r, g, b = eval_basis(cos_t, cos_g, gamma, h["basis_p"], h["basis_m"])
+    horizon_dim = torch.where(d[1] < 0.0, 0.35, 1.0)
+    return (r * horizon_dim, g * horizon_dim, b * horizon_dim)
+
+
+def _sun_poly_eval(poly, s):
+    r = poly[5][0] + s * 0.0
+    g = poly[5][1] + s * 0.0
+    b = poly[5][2] + s * 0.0
+    for i in (4, 3, 2, 1, 0):
+        r = r * s + poly[i][0]
+        g = g * s + poly[i][1]
+        b = b * s + poly[i][2]
+    return r, g, b
+
+
+def _sin2_r(cos_r: float) -> float:
+    c = np.float32(cos_r)
+    return float(max(np.float32(1.0) - c * c, np.float32(1e-12)))
+
+
+def sun_radiance(d, sky: SkyState):
+    h = sky.host
+    sun = h["sun"]
+    cos_g = d[0] * sun[0] + d[1] * sun[1] + d[2] * sun[2]
+    in_disk = cos_g > h["cos_r"]
+    s2 = 1.0 - (1.0 - cos_g * cos_g) / _sin2_r(h["cos_r"])
+    s = m.sqrt(torch.clamp(s2, 0.0, 1.0))
+    r, g, b = _sun_poly_eval(h["sun_poly"], s)
+    z = torch.where(in_disk, 1.0, 0.0)
+    return (torch.clamp(r, min=0.0) * z, torch.clamp(g, min=0.0) * z,
+            torch.clamp(b, min=0.0) * z)
+
+
+def sun_radiance_cone(u1, sky: SkyState):
+    h = sky.host
+    cos_r = h["cos_r"]
+    cos_g = 1.0 - u1 * float(np.float32(1.0) - np.float32(cos_r))
+    s = m.sqrt(torch.clamp(1.0 - (1.0 - cos_g * cos_g) / _sin2_r(cos_r),
+                               0.0, 1.0))
+    r, g, b = _sun_poly_eval(h["sun_poly"], s)
+    return (torch.clamp(r, min=0.0), torch.clamp(g, min=0.0),
+            torch.clamp(b, min=0.0))
+
+
+def equal_area_dirs(w: int, h: int, device="cpu"):
+    u = (torch.arange(w, dtype=torch.float32, device=device)[None, :] + 0.5) / w
+    v = (torch.arange(h, dtype=torch.float32, device=device)[:, None] + 0.5) / h
+    phi = 2.0 * math.pi * u
+    cos_t = (1.0 - v).expand(h, w)
+    sin_t = m.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    phi = phi + 0 * cos_t
+    return (sin_t * torch.cos(phi), cos_t, sin_t * torch.sin(phi))
+
+
+def build_sky_map(sky: SkyState, w: int, h: int):
+    d = equal_area_dirs(w, h, sky.env_pmf.device)
+    r, g, b = sky_radiance(d, sky)
+    lum = m.luminance(r, g, b)
+    pdf = lum / torch.clamp(lum.sum(), min=1e-9)
+    return torch.stack([r, g, b], dim=-1), pdf
+
+
+def sky_env_sample(sky: SkyState, u1, u2, u3):
+    """Draw a sky direction ∝ the env luminance map: (dir, pdf_sa)."""
+    texel, pmf = at.sample(sky.env_prob, sky.env_alias, sky.env_pmf, u1)
+    iu = (texel % ENV_W).to(torch.float32)
+    iv = (texel // ENV_W).to(torch.float32)
+    phi = 2.0 * math.pi * (iu + u2) / ENV_W
+    cos_t = 1.0 - (iv + u3) / ENV_H
+    sin_t = m.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    d = (sin_t * torch.cos(phi), cos_t, sin_t * torch.sin(phi))
+    return d, pmf / _ENV_OMEGA
+
+
+def sky_env_pdf(sky: SkyState, d):
+    phi = torch.atan2(d[2], d[0])
+    u = torch.remainder(phi / (2.0 * math.pi), 1.0)
+    iu = torch.clamp((u * ENV_W).to(torch.int32), 0, ENV_W - 1)
+    iv = torch.clamp(((1.0 - d[1]) * ENV_H).to(torch.int32), 0, ENV_H - 1)
+    pmf = at.take(sky.env_pmf, iv * ENV_W + iu)
+    return torch.where(d[1] > 0.0, pmf / _ENV_OMEGA, 0.0)

@@ -1,0 +1,141 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions on the
+card (marker `gpu`; skipped where torch sees no CUDA device).  Run on a
+GPU machine with:  python -m pytest tests/test_torch_gpu.py -m gpu
+
+Small shapes with ragged edges; K1, K2, K3 and K5 bit-exact (the library
+is built with --fmad=false, so every product rounds like the plain
+version's), K6 to 1e-5 relative."""
+import numpy as np
+import pytest
+import torch
+
+from rtvb_tpu_torch import kernels as K
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    K.LIBRARY.get()
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+@pytest.fixture(scope="module")
+def engine(cuda):
+    from rtvb_tpu_torch.render.renderer import Engine, slice_settings
+    return Engine(settings=slice_settings(200, 120), device=cuda)
+
+
+def _bits_equal(a, b):
+    if a.dtype == torch.float32:
+        a, b = a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)
+    return bool((a == b).all())
+
+
+def _rays(engine, seed):
+    g = torch.Generator().manual_seed(seed)
+    dev = engine.device
+    o = torch.rand(3, 90, 130, generator=g) * torch.tensor([64.0, 20, 64])[
+        :, None, None]
+    d = torch.randn(3, 90, 130, generator=g)
+    d = d / d.norm(dim=0, keepdim=True)
+    return (tuple(c.contiguous().to(dev) for c in o),
+            tuple(c.contiguous().to(dev) for c in d))
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_trace_kernel_matches_plain(engine, any_hit):
+    from rtvb_tpu_torch.ops import dda
+    o, d = _rays(engine, 1)
+    cap = torch.rand(o[0].shape, generator=torch.Generator().manual_seed(2))
+    cap = (cap * 60 + 0.5).to(engine.device)
+    a = dda.trace_cuda(o, d, engine._tables, engine._tp, cap, any_hit)
+    b = dda.trace_plain(o, d, engine._tables, engine._tp, cap, any_hit)
+    fields = ("hit", "t") if any_hit else dda.HitRecord._fields
+    for f in fields:
+        assert _bits_equal(getattr(a, f), getattr(b, f)), f
+
+
+def test_tri_kernel_matches_plain(engine):
+    from rtvb_tpu_torch.ops import triangles
+    o, d = _rays(engine, 3)
+    tri = engine.entity_buffers().tri_packed
+    a = triangles.intersect_packed_cuda(o, d, tri)
+    b = triangles.intersect_packed_plain(o, d, tri)
+    for f in triangles.TriHit._fields:
+        assert _bits_equal(getattr(a, f), getattr(b, f)), f
+
+
+def test_texture_kernel_matches_plain(engine):
+    from rtvb_tpu_torch.assets import image_textures as it
+    g = torch.Generator().manual_seed(4)
+    dev = engine.device
+    H, W = 70, 200
+    t_count = it.atlas_count(engine.texture_atlas)
+    tid = (torch.randint(-1, t_count, (H, W), generator=g,
+                         dtype=torch.int32)).to(dev)
+    u = (torch.rand(H, W, generator=g) * 3).to(dev)
+    v = (torch.rand(H, W, generator=g) * 3).to(dev)
+    lvl = it.level_from_lod((torch.rand(H, W, generator=g) * 0.02).to(dev))
+    a = it._sample_cuda(engine.texture_atlas, t_count, tid, u, v, lvl)
+    b = it._sample_ref(engine.texture_atlas, t_count, tid, u, v, lvl)
+    use = tid >= 0
+    for x, y in zip(a, b):
+        assert _bits_equal(torch.where(use, x, 0.0), torch.where(use, y, 0.0))
+
+
+@pytest.mark.parametrize("bilinear", [False, True])
+def test_warp_kernel_matches_plain(cuda, bilinear):
+    from rtvb_tpu_torch.ops import warp_kernel
+    g = torch.Generator().manual_seed(5)
+    H, W = 37, 150
+    yy, xx = torch.meshgrid(torch.arange(H, dtype=torch.float32),
+                            torch.arange(W, dtype=torch.float32),
+                            indexing="ij")
+    sy = (yy + 3 * torch.randn(H, W, generator=g)).to(cuda)
+    sx = (xx + 3 * torch.randn(H, W, generator=g)).to(cuda)
+    if bilinear:
+        hist = torch.randn(7, H, W, generator=g).to(cuda)
+        a = warp_kernel._warp_cuda(hist, sy, sx, True, 6)
+        b = warp_kernel.warp_bilinear_ref(hist, sy, sx, 6)
+    else:
+        hist = torch.randint(-2 ** 31, 2 ** 31 - 1, (8, H, W), generator=g,
+                             dtype=torch.int32).to(cuda).view(torch.float32)
+        a = warp_kernel._warp_cuda(hist, sy, sx, False, 0)
+        b = warp_kernel.warp_nearest_ref(hist, sy, sx)
+    assert bool((a[1] == b[1]).all())
+    assert _bits_equal(a[0], b[0])
+
+
+@pytest.mark.parametrize("step", [1, 2, 4, 8, 16])
+def test_atrous_kernel_matches_plain(cuda, step):
+    from rtvb_tpu_torch.ops.denoise import atrous_kernel, passes
+    g = torch.Generator().manual_seed(step)
+    H, W = 45, 70
+    illum = torch.rand(H, W, 3, generator=g).to(cuda)
+    var = (torch.rand(H, W, generator=g) * 0.1).to(cuda)
+    depth = (10 + 20 * torch.rand(H, W, generator=g)).to(cuda)
+    depth[:4, :9] = 1e30
+    n = torch.randn(H, W, 3, generator=g) * 0.2
+    n[..., 1] += 1
+    normal = (n / n.norm(dim=-1, keepdim=True)).to(cuda)
+    a = atrous_kernel._atrous_cuda(illum, var, depth, normal, step, 2.0,
+                                   64.0, 0.05)
+    b = passes.atrous_pass_plain(illum, var, depth, normal, step, 2.0, 64.0,
+                                 0.05)
+    for x, y in zip(a, b):
+        np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-7)
+
+
+def test_wrapper_raises_on_wrong_input(cuda):
+    from rtvb_tpu_torch.ops import warp_kernel
+    hist = torch.zeros(8, 16, 16, device=cuda)
+    sy = torch.zeros(16, 16, device=cuda, dtype=torch.float64)
+    with pytest.raises(TypeError):
+        warp_kernel.warp_nearest(hist, sy, sy)
+    with pytest.raises(ValueError):
+        warp_kernel.warp_nearest(hist, torch.zeros(16, 32, device=cuda)[:, ::2],
+                                 torch.zeros(16, 16, device=cuda))
