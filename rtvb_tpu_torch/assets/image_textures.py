@@ -70,7 +70,7 @@ def _box_down(img: np.ndarray, size: int) -> np.ndarray:
 
 
 def _read_optional(path: str):
-    from rtvb_tpu.utils.image import read_png
+    from ..utils.image import read_png
     if not os.path.exists(path):
         return None
     img = read_png(path).astype(np.float32) / 255.0

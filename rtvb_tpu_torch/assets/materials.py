@@ -9,7 +9,7 @@ import numpy as np
 import torch
 import yaml
 
-from rtvb_tpu.assets.blocks import BlockRegistry
+from .blocks import BlockRegistry
 
 
 @dataclass

@@ -8,7 +8,7 @@ from typing import NamedTuple
 
 import torch
 
-from rtvb_tpu.core.config import DenoisingSettings
+from ..core.config import DenoisingSettings
 
 from ..ops import mathutil as m
 from ..ops.denoise import passes

@@ -16,7 +16,7 @@ from typing import NamedTuple
 
 import torch
 
-from rtvb_tpu.core.config import RenderingSettings
+from ..core.config import RenderingSettings
 
 from ..assets import textures
 from ..core.camera import Camera, camera_rays, pixel_uv

@@ -7,7 +7,7 @@ from typing import NamedTuple
 
 import torch
 
-from rtvb_tpu.core.config import PostProcessingSettings, ToneMappingSettings
+from ..core.config import PostProcessingSettings, ToneMappingSettings
 
 from ..ops import mathutil as m
 

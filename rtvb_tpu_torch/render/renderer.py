@@ -17,9 +17,9 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from rtvb_tpu.assets.blocks import BlockRegistry
-from rtvb_tpu.core.config import Settings
-from rtvb_tpu.core.scene import SceneConfig
+from ..assets.blocks import BlockRegistry
+from ..core.config import Settings
+from ..core.scene import SceneConfig
 
 from ..assets import image_textures
 from ..assets.decorations import DecorationMeshes

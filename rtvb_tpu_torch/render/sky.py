@@ -14,7 +14,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from rtvb_tpu.core.config import SkySettings
+from ..core.config import SkySettings
 
 from ..ops import alias_table as at
 from ..ops import mathutil as m

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from rtvb_tpu.assets import blocks as B
+from ..assets import blocks as B
 
 from .voxel import WorldConfig, VoxelWorld, build_tables_np, pack_schema, \
     world_from_numpy

@@ -9,7 +9,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from rtvb_tpu.assets.blocks import BlockRegistry
+from ..assets.blocks import BlockRegistry
 
 from ..ops import alias_table as at
 from .voxel import EXC_EMPTY, WorldConfig, VoxelWorld

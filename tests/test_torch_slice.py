@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from rtvb_tpu.core.config import Settings as JSettings
 from rtvb_tpu.ops import dda as jdda
 from rtvb_tpu.render import pathtracer as jpt
 from rtvb_tpu.render import postprocess as jpp
@@ -45,6 +46,11 @@ from rtvb_tpu_torch.render.renderer import Engine, slice_settings
 torch.set_num_threads(2)
 
 H = W = 64
+
+
+def jax_settings(port_settings):
+    """The JAX package's Settings with the port settings' values."""
+    return JSettings.from_dict(port_settings.to_dict())
 
 
 def _jax_frame_fn(je):
@@ -76,8 +82,8 @@ def _jax_frame_fn(je):
 def frames():
     """Two JAX frames; after each, a port engine holding the state the JAX
     engine had BEFORE that frame."""
-    je = JEngine(settings=slice_settings(W, H), width=W, height=H,
-                 backend="xla")
+    je = JEngine(settings=jax_settings(slice_settings(W, H)), width=W,
+                 height=H, backend="xla")
     je.restir_state = _commit(jrestir.initial_state(H, W))
     je.denoiser_state = _commit(initial_denoiser_state(H, W))
     fn = _jax_frame_fn(je)

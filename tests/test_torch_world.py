@@ -22,8 +22,10 @@ from rtvb_tpu.world import lighting as jlight
 from rtvb_tpu.world import voxel as jvoxel
 from rtvb_tpu_torch import interop
 from rtvb_tpu_torch.assets import textures as ptex
+from rtvb_tpu_torch.assets.blocks import BlockRegistry as PBlockRegistry
 from rtvb_tpu_torch.assets.decorations import DecorationMeshes
 from rtvb_tpu_torch.assets.materials import MaterialRegistry as PMatReg
+from rtvb_tpu_torch.core.config import SkySettings as PSkySettings
 from rtvb_tpu_torch.render import sky as psky
 from rtvb_tpu_torch.world import gen as pgen
 from rtvb_tpu_torch.world import lighting as plight
@@ -36,6 +38,10 @@ ASSETS = os.path.join(os.path.dirname(__file__), "..", "data", "assets")
 
 def _registry():
     return BlockRegistry.from_yaml(os.path.join(ASSETS, "blocks.yaml"))
+
+
+def _port_registry():
+    return PBlockRegistry.from_yaml(os.path.join(ASSETS, "blocks.yaml"))
 
 
 def _assert_tables_equal(a, b):
@@ -87,7 +93,8 @@ def test_material_table_equal():
     names = {n: i for i, n in enumerate(["character_albedo", "bark", "brick",
                                          "grass", "stone"])}
     jm = JMatReg.from_yaml(path).build_table(reg, jtex.TEXTURE_IDS, names)
-    pm = PMatReg.from_yaml(path).build_table(reg, ptex.TEXTURE_IDS, names)
+    pm = PMatReg.from_yaml(path).build_table(_port_registry(),
+                                             ptex.TEXTURE_IDS, names)
     _assert_tables_equal(interop.materials(jm), pm)
 
 
@@ -115,16 +122,17 @@ def _lit_world(reg):
 
 
 def test_light_table_equal():
-    reg = _registry()
-    reg.blocks[reg.id_of("brick")] = dataclasses.replace(
-        reg.blocks[reg.id_of("brick")], emissive=True)
+    reg, preg = _registry(), _port_registry()
+    for r in (reg, preg):
+        r.blocks[r.id_of("brick")] = dataclasses.replace(
+            r.blocks[r.id_of("brick")], emissive=True)
     jcfg, jw = _lit_world(reg)
     path = os.path.join(ASSETS, "materials.yaml")
     jm = JMatReg.from_yaml(path).build_table(reg, jtex.TEXTURE_IDS)
-    pm = PMatReg.from_yaml(path).build_table(reg, ptex.TEXTURE_IDS)
+    pm = PMatReg.from_yaml(path).build_table(preg, ptex.TEXTURE_IDS)
     jl = jlight.build_light_table(jcfg, jw, jm, reg)
     pcfg = pvoxel.WorldConfig()
-    pl = plight.build_light_table(pcfg, interop.world(jw), pm, reg,
+    pl = plight.build_light_table(pcfg, interop.world(jw), pm, preg,
                                   DecorationMeshes())
     assert pl.count == int(jl.count) == 12 * 3 + 12
     _assert_tables_equal(interop.lights(jl), pl)
@@ -134,8 +142,8 @@ def test_light_table_equal():
 
 @pytest.fixture(scope="module")
 def skies():
-    s = SkySettings()
-    return jsky.make_sky_state(s), psky.make_sky_state(s)
+    return (jsky.make_sky_state(SkySettings()),
+            psky.make_sky_state(PSkySettings()))
 
 
 def test_sky_state_close(skies):
