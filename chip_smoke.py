@@ -2,17 +2,27 @@
 
     python3 chip_smoke.py
 
-1. builds the hand-written CUDA kernels from rtvb_tpu_torch/csrc;
+1. builds the hand-written CUDA kernels from rtvb_tpu_torch/csrc (one nvcc
+   per source, all started together);
 2. holds each kernel against its plain PyTorch version on the same CUDA
-   inputs at the shapes the 1080p frame gives it (error, CUDA-event times);
-3. drives the real-time frame — Engine(device="cuda") with the slice
-   settings at 1920×1080 — through warm-up and timed frames, with every
-   kernel's launch counter reset just before and read just after;
+   inputs at the shapes the 1080p frame gives it (error, CUDA-event times,
+   the card's bound for the same work, a one-call PyTorch yardstick where
+   one exists); K4 (fused shade) on the frame's own bounce-0 and bounce-1
+   inputs: (a) as the frame calls it, (b) with a synthetic 200-slot light
+   table, 8 candidates, 3 taps and entity MIS, (c) at 960×540 with 2
+   candidates and no taps, (d) with blue noise off;
+3. drives the main path — Engine(device="cuda") with the shipped
+   Settings() at 1920×1080 (fused shading, native resolution) — through
+   warm-up and timed frames, every kernel's launch counter reset just
+   before and read just after; K4 must launch 3 times a frame;
 4. checks the frame: u8 shape, finite, non-constant, primary hit fraction;
-5. profiles three more frames (torch.profiler): host ms per engine stage,
+5. times the in-line configuration (slice_settings: fused shading off)
+   in the same process, for the record;
+6. profiles three more frames (torch.profiler): host ms per engine stage,
    the device's busy share, device ops per frame, the top device kernels;
-6. renders two frames at 320×180 with the kernels on the card and with
-   the plain versions on the CPU, and compares them like the CPU slice test.
+7. renders two frames at 320×180 with the kernels on the card and with
+   the plain versions on the CPU, for both configurations, and compares
+   them like the CPU slice tests.
 
 Exits non-zero, without the final line, on any failure or without a card.
 The last line is {"ok": true, "device": {...}}; the line before it lists
@@ -49,7 +59,16 @@ KERNELS = {
              "rtvb_tpu/ops/warp_kernel.py:160"),
     "atrous": ("rtvb_tpu_torch/csrc/atrous_kernel.cu",
                "rtvb_tpu/ops/denoise/atrous_kernel.py:130"),
+    "shade": ("rtvb_tpu_torch/csrc/shade_kernel.cu",
+              "rtvb_tpu/render/ris_kernel.py:484"),
 }
+
+# the least time the card could take for a kernel's work: its bytes (each
+# input read once, each output written once) over the memory rate, or its
+# operations over the f32 rate outside the tensor cores, whichever is
+# larger (NVIDIA H100 SXM data sheet, at its 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 
 class SmokeFailure(RuntimeError):
@@ -109,23 +128,44 @@ def errors(a, b):
     return float(d.max()), float(rel.max())
 
 
+def bound_ms(n_bytes: float, n_ops: float):
+    """(bound ms, "bytes" or "operations")."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
 class Report:
     def __init__(self):
         self.cases = []
 
-    def case(self, kernel, name, kern_fn, plain_fn, compare, n=10):
+    def case(self, kernel, name, kern_fn, plain_fn, compare, work, n=10,
+             library_fn=None):
         """compare(kernel_out, plain_out) → (max_abs, max_rel); raises on
-        a disagreement beyond the case's stated tolerance."""
+        a disagreement beyond the case's stated tolerance.  work = (bytes,
+        operations) of the case; library_fn: one PyTorch call computing
+        the same function (a yardstick the port never calls)."""
         k_out = kern_fn()
         p_out = plain_fn()
         sync()
         abs_e, rel_e = compare(k_out, p_out)
         ms = cuda_ms(kern_fn, n)
         plain_ms = cuda_ms(plain_fn, n)
+        lib_ms = cuda_ms(library_fn, n) if library_fn is not None else None
+        b_ms, b_by = bound_ms(*work)
         self.cases.append(dict(kernel=kernel, case=name, max_abs_err=abs_e,
-                               max_rel_err=rel_e, ms=ms, plain_ms=plain_ms))
-        log(f"  {kernel:8s} {name:34s} max_abs {abs_e:.3g}  max_rel "
-            f"{rel_e:.3g}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
+                               max_rel_err=rel_e, ms=ms, plain_ms=plain_ms,
+                               bound_ms=b_ms, bound_by=b_by,
+                               bytes=work[0], ops=work[1],
+                               library_ms=lib_ms))
+        lib = "" if lib_ms is None else f"  library {lib_ms:.4f} ms"
+        log(f"  {kernel:8s} {name:40s} max_abs {abs_e:.3g}  max_rel "
+            f"{rel_e:.3g}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+            f"bound {b_ms:.4f} ms ({b_by}){lib}")
 
 
 def exact(fields):
@@ -155,7 +195,7 @@ def kernel_cases(eng, rep: Report):
     from rtvb_tpu_torch.ops import mathutil as m
     from rtvb_tpu_torch.ops.alias_table import take
     from rtvb_tpu_torch.ops.denoise import atrous_kernel, passes
-    from rtvb_tpu_torch.ops.pack import pack2
+    from rtvb_tpu_torch.ops.pack import pack2, unpack2
 
     dev = eng.device
     H, W = eng.height, eng.width
@@ -175,9 +215,19 @@ def kernel_cases(eng, rep: Report):
     log(f"primary hit fraction at the scene camera: {hit_frac:.4f}")
     check(0.5 < hit_frac < 0.9, f"hit fraction {hit_frac} off 0.7")
     closest = exact(dda.HitRecord._fields)
+    tab_bytes = nbytes(*(t for t in tables if isinstance(t, torch.Tensor)))
+
+    def trace_work(n_rays, any_hit):
+        # rays in (+ the cap), the record out (hit byte + t, or the whole
+        # closest-hit record: t, voxel, normal, material), the tables; ops:
+        # the ray setup alone (3 reciprocals, the slab test, the exit cap),
+        # an undercount of the march, which depends on the data
+        per = 24 + (4 + 5 if any_hit else 33)
+        return n_rays * per + tab_bytes, 30 * n_rays
     rep.case("trace", f"closest, camera rays {W}x{H}",
              lambda: dda.trace_cuda(o, d, tables, tp),
-             lambda: dda.trace_plain(o, d, tables, tp), closest)
+             lambda: dda.trace_plain(o, d, tables, tp), closest,
+             trace_work(H * W, False))
     h2, w2 = H // 2, W // 2
     ro = (rnd(h2, w2, hi=64.0), rnd(h2, w2, lo=1.0, hi=20.0),
           rnd(h2, w2, hi=64.0))
@@ -186,7 +236,8 @@ def kernel_cases(eng, rep: Report):
     rd = tuple(c.contiguous() for c in rd)
     rep.case("trace", f"closest, random rays {w2}x{h2}",
              lambda: dda.trace_cuda(ro, rd, tables, tp),
-             lambda: dda.trace_plain(ro, rd, tables, tp), closest)
+             lambda: dda.trace_plain(ro, rd, tables, tp), closest,
+             trace_work(h2 * w2, False))
     p = m.add(o, m.scale(d, torch.where(rec.hit, rec.t, 0.0)))
     n = (rec.nx, rec.ny, rec.nz)
     so = tuple(c.contiguous() for c in m.add(p, m.scale(n, 1e-3)))
@@ -196,23 +247,31 @@ def kernel_cases(eng, rep: Report):
     anyh = exact(("hit", "t"))
     rep.case("trace", f"any hit, sun shadow rays {W}x{H}",
              lambda: dda.trace_cuda(so, sun, tables, tp, cap, True),
-             lambda: dda.trace_plain(so, sun, tables, tp, cap, True), anyh)
+             lambda: dda.trace_plain(so, sun, tables, tp, cap, True), anyh,
+             trace_work(H * W, True))
     rcap = rnd(h2, w2, lo=0.5, hi=60.0)
     rep.case("trace", f"any hit, random rays {w2}x{h2}",
              lambda: dda.trace_cuda(ro, rd, tables, tp, rcap, True),
-             lambda: dda.trace_plain(ro, rd, tables, tp, rcap, True), anyh)
+             lambda: dda.trace_plain(ro, rd, tables, tp, rcap, True), anyh,
+             trace_work(h2 * w2, True))
 
     # --- K2: the flower soup against the primary rays, capped at the voxel
     tri = eng.entity_buffers().tri_packed
     t_cap = rec.t.contiguous()
+
+    def tri_work(n_rays, capped):
+        # rays (+ cap) in, hit / t / tri / u / v out, the soup once;
+        # Möller–Trumbore is 27 flops per ray and triangle
+        return (n_rays * (24 + 4 * capped + 17) + nbytes(tri),
+                27 * n_rays * tri.shape[0])
     rep.case("tri", f"{tri.shape[0]} tris, camera rays {W}x{H}",
              lambda: triangles.intersect_packed_cuda(o, d, tri, t_cap),
              lambda: triangles.intersect_packed_plain(o, d, tri, t_cap),
-             exact(triangles.TriHit._fields))
+             exact(triangles.TriHit._fields), tri_work(H * W, True))
     rep.case("tri", f"{tri.shape[0]} tris, random rays {w2}x{h2}",
              lambda: triangles.intersect_packed_cuda(ro, rd, tri),
              lambda: triangles.intersect_packed_plain(ro, rd, tri),
-             exact(triangles.TriHit._fields))
+             exact(triangles.TriHit._fields), tri_work(h2 * w2, False))
 
     # --- K3: the authored atlas at the frame's primary-hit lod field
     mats = eng.materials
@@ -241,7 +300,11 @@ def kernel_cases(eng, rep: Report):
         return out
     rep.case("texture", f"{t_count} textures, {W}x{H} lod field",
              lambda: it._sample_cuda(atlas, t_count, tid, u, v, lvl),
-             lambda: it._sample_ref(atlas, t_count, tid, u, v, lvl), tex_cmp)
+             lambda: it._sample_ref(atlas, t_count, tid, u, v, lvl), tex_cmp,
+             # tid, u, v, level in, 6 channels out (the texels read depend
+             # on the data: not counted); 2 levels × 4 taps × 6 channels
+             # of bilinear blends ≈ 100 flops a pixel
+             (H * W * (16 + 24), 100 * H * W))
 
     # --- K5: ReSTIR reservoirs (nearest, bitwise) and the denoiser history
     # (bilinear, 6 bf16 pairs) under a camera-pan warp
@@ -253,17 +316,32 @@ def kernel_cases(eng, rep: Report):
     bits = torch.randint(-2 ** 31, 2 ** 31 - 1, (8, H, W), generator=gen,
                          dtype=torch.int32).to(dev)
     hist8 = bits.view(torch.float32)
+    # yardstick: torch's grid_sample over the same source coordinates
+    # (pixel centres → normalised, edge-clamped), timed only here
+    grid = torch.stack([(sx + 0.5) / W * 2.0 - 1.0,
+                        (sy + 0.5) / H * 2.0 - 1.0], dim=-1)[None]
+    grid_sample = torch.nn.functional.grid_sample
     rep.case("warp", f"nearest, 8 planes {W}x{H}",
              lambda: warp_kernel._warp_cuda(hist8, sy, sx, False, 0),
              lambda: warp_kernel.warp_nearest_ref(hist8, sy, sx),
-             lambda a, b: _cmp_pairs(a, b, exact_bits=True))
+             lambda a, b: _cmp_pairs(a, b, exact_bits=True),
+             (H * W * (8 + 8 * 4 + 8 * 4 + 1), 4 * H * W),
+             library_fn=lambda: grid_sample(
+                 hist8[None], grid, mode="nearest", padding_mode="border",
+                 align_corners=False))
     vals = rnd(13, H, W, lo=-4.0, hi=4.0)
     hist7 = torch.stack([pack2(vals[2 * c], vals[2 * c + 1])
                          for c in range(6)] + [vals[12]]).contiguous()
+    vals13 = torch.stack([x for c in range(6) for x in unpack2(hist7[c])]
+                         + [vals[12]])[None].contiguous()
     rep.case("warp", f"bilinear, 7 planes (6 pairs) {W}x{H}",
              lambda: warp_kernel._warp_cuda(hist7, sy, sx, True, 6),
              lambda: warp_kernel.warp_bilinear_ref(hist7, sy, sx, 6),
-             lambda a, b: _cmp_pairs(a, b, exact_bits=False, tol=1e-6))
+             lambda a, b: _cmp_pairs(a, b, exact_bits=False, tol=1e-6),
+             (H * W * (8 + 7 * 4 + 13 * 4 + 1), 8 * 13 * H * W),
+             library_fn=lambda: grid_sample(
+                 vals13, grid, mode="bilinear", padding_mode="border",
+                 align_corners=False))
 
     # --- K6: the denoiser's à-trous passes on a real G-buffer
     g, _ = eng.render_gbuffers()
@@ -285,7 +363,183 @@ def kernel_cases(eng, rep: Report):
                  lambda s=step: atrous_kernel._atrous_cuda(
                      illum, var, depth, normal, s, *phis),
                  lambda s=step: passes.atrous_pass_plain(
-                     illum, var, depth, normal, s, *phis), atrous_cmp)
+                     illum, var, depth, normal, s, *phis), atrous_cmp,
+                 # illum, var, depth, normal in; illum, var out; 25 taps
+                 # of ~30 flops (luminance, normal and depth weights)
+                 (H * W * (32 + 16), 750 * H * W))
+
+
+# ---------------------------------------------------------------------------
+# K4, the fused shade kernel
+# ---------------------------------------------------------------------------
+
+def synthetic_lights(k: int, n_lit: int, seed: int, device):
+    """A LightTable of k slots holding n_lit random emissive triangles
+    (alias table over luminance × area, random entity flags)."""
+    from rtvb_tpu_torch.ops import alias_table
+    from rtvb_tpu_torch.world import lighting
+    r = np.random.default_rng(seed)
+    v0 = np.zeros((k, 3), np.float32)
+    e1 = np.zeros((k, 3), np.float32)
+    e2 = np.zeros((k, 3), np.float32)
+    nrm = np.zeros((k, 3), np.float32)
+    area = np.zeros(k, np.float32)
+    rad = np.zeros((k, 3), np.float32)
+    w = np.zeros(k)
+    for i in range(n_lit):
+        v0[i] = r.uniform([0, 2, 0], [64, 24, 64])
+        e1[i] = r.normal(size=3) * 0.6
+        e2[i] = r.normal(size=3) * 0.6
+        c = np.cross(e1[i], e2[i])
+        nrm[i] = c / max(np.linalg.norm(c), 1e-12)
+        area[i] = 0.5 * np.linalg.norm(c)
+        rad[i] = r.uniform(0.5, 20.0, 3)
+        w[i] = (0.2126 * rad[i, 0] + 0.7152 * rad[i, 1]
+                + 0.0722 * rad[i, 2]) * area[i]
+    tab = alias_table.build(w)
+    arrays = dict(area=area, rad_r=rad[:, 0], rad_g=rad[:, 1],
+                  rad_b=rad[:, 2], key=np.arange(k, dtype=np.int32),
+                  ent=r.random(k) < 0.4, active=np.arange(k) < n_lit,
+                  count=n_lit, prob=tab.prob, alias=tab.alias, pmf=tab.pmf)
+    for i, c in enumerate("xyz"):
+        arrays.update({f"v0{c}": v0[:, i], f"e1{c}": e1[:, i],
+                       f"e2{c}": e2[:, i], f"n{c}": nrm[:, i]})
+    arrays = {f: np.ascontiguousarray(a) if isinstance(a, np.ndarray) else a
+              for f, a in arrays.items()}
+    return lighting.light_table_from_numpy(arrays, device)
+
+
+def capture_shade_calls(eng):
+    """The fused_shade calls of one frame of `eng` (it advances the
+    engine's state like any frame): [(args, kwargs)] per bounce."""
+    from rtvb_tpu_torch.render import ris_kernel as RK
+    calls = []
+    orig = RK.fused_shade
+
+    def record(*a, **kw):
+        calls.append((a, kw))
+        return orig(*a, **kw)
+    RK.fused_shade = record
+    try:
+        eng.render_realtime_device()
+    finally:
+        RK.fused_shade = orig
+    return calls
+
+
+def shade_cases(eng, seed: int = 5):
+    """The four K4 cases on the frame's own inputs: {name: (args, kw)}.
+    (a) bounce 0 as the frame calls it; (b) bounce 0 with a synthetic
+    200-slot light table, 8 candidates, 3 taps, entity MIS; (c) bounce 1
+    (half resolution) with the synthetic table, 2 candidates, no taps;
+    (d) bounce 0 with blue noise off."""
+    from rtvb_tpu_torch.render import ris_kernel as RK
+    from rtvb_tpu_torch.render import sky as sky_mod
+    calls = capture_shade_calls(eng)
+    check(len(calls) == eng.settings.rendering.total_bounce_limit,
+          f"{len(calls)} fused_shade calls in a frame")
+    (a0, kw0), (a1, kw1) = calls[0], calls[1]
+    check(a0[0].n_taps == 3 and a0[0].blue_noise and a1[0].n_taps == 0,
+          f"unexpected frame configs {a0[0]} {a1[0]}")
+    dev = eng.device
+    lights = synthetic_lights(200, 150, seed, dev)
+    remap = random_remap(200, seed, dev)
+    lf, li = RK.pack_light_tables(lights, remap)
+    sf = sky_mod.sky_scalar_pack(eng.sky_state, True)
+
+    def with_lights(args, **cfg):
+        c = args[0]._replace(k_slots=200, **cfg)
+        return (c, args[1], args[2], sf, lf, li) + tuple(args[6:])
+    (h0, w0), (h1, w1) = a0[8][0].shape, a1[8][0].shape
+    return {
+        f"(a) bounce 0 {w0}x{h0}, 3 taps, blue noise": (a0, kw0),
+        f"(b) 200 lights {w0}x{h0}, 8 cand, 3 taps, ent": (
+            with_lights(a0, n_local=8, ent_unreachable=True), kw0),
+        f"(c) 200 lights {w1}x{h1}, 2 cand, 0 taps": (
+            with_lights(a1, n_local=2), kw1),
+        f"(d) bounce 0 {w0}x{h0}, 3 taps, white noise": (
+            (a0[0]._replace(blue_noise=False),) + tuple(a0[1:]),
+            dict(kw0, bn=None)),
+    }
+
+
+def random_remap(k: int, seed: int, device):
+    """A light-slot remap holding -1s (slots removed by an edit)."""
+    import torch
+    r = np.random.default_rng(seed).permutation(k).astype(np.int32)
+    r[::7] = -1
+    return torch.from_numpy(r).to(device)
+
+
+def shade_work(args, kw):
+    """(bytes, ops) of one K4 launch: every input plane read once, the 26
+    output planes written once, the tables; ops ≈ 100 flops per RIS
+    candidate (the luminance BSDF proxy and the weights), 120 per tap,
+    450 for winner shading and the BSDF sample."""
+    from rtvb_tpu_torch.render import ris_kernel as RK
+    cfg = args[0]
+    H, W = args[8][0].shape
+    n_in = 15 + (1 + 9 * cfg.n_taps if cfg.n_taps else 0) \
+        + (4 if cfg.blue_noise else 0)
+    tables = nbytes(*args[3:8])
+    flops = 100 * (cfg.n_local + 2) + 120 * cfg.n_taps + 450
+    return H * W * 4 * (n_in + RK.N_OUT) + tables, flops * H * W
+
+
+def shade_diff(a, b) -> dict:
+    """K4 against its plain version: the share of pixels whose four int
+    outputs all agree, the count of float values that differ in any bit,
+    and the largest relative error of a float output on the pixels where
+    the ints agree."""
+    import torch
+    from rtvb_tpu_torch.render import ris_kernel as RK
+    fa, fb = RK.flatten_out(a), RK.flatten_out(b)
+    agree = torch.ones_like(fa[0], dtype=torch.bool)
+    for k in RK.OUT_I32:
+        agree &= fa[k] == fb[k]
+    out = dict(int_agree=float(agree.float().mean()), float_bits_differ={},
+               max_rel=0.0, max_abs=0.0)
+    for k, (x, y) in enumerate(zip(fa, fb)):
+        if k in RK.OUT_I32:
+            continue
+        bits = int((x.view(torch.int32) != y.view(torch.int32)).sum())
+        if bits:
+            out["float_bits_differ"][k] = bits
+        xd, yd = x.double()[agree], y.double()[agree]
+        same = (xd == yd) | (torch.isnan(xd) & torch.isnan(yd))
+        d = (xd - yd).abs()
+        d = torch.where(same, 0.0, d)
+        rel = d / yd.abs().clamp(min=1e-6)
+        if d.numel():
+            out["max_abs"] = max(out["max_abs"], float(d.max()))
+            out["max_rel"] = max(out["max_rel"], float(rel.max()))
+    return out
+
+
+def shade_check(d: dict):
+    """The bar: ints equal on ≥ 99.9% of pixels, floats within 1e-5
+    relative where they are (absolute 1e-7 near zero)."""
+    check(d["int_agree"] >= 0.999, f"shade ints agree on {d['int_agree']}")
+    check(d["max_rel"] <= 1e-5 or d["max_abs"] <= 1e-7,
+          f"shade floats: max rel {d['max_rel']}, max abs {d['max_abs']}")
+
+
+def shade_kernel_cases(eng, rep: "Report"):
+    from rtvb_tpu_torch.render import ris_kernel as RK
+    diffs = {}
+    for name, (args, kw) in shade_cases(eng).items():
+        def cmp(a, b, name=name):
+            d = shade_diff(a, b)
+            diffs[name] = d
+            log(f"    {name}: ints agree {d['int_agree']:.6f}, float values "
+                f"differing in a bit per output {d['float_bits_differ']}")
+            shade_check(d)
+            return d["max_abs"], d["max_rel"]
+        rep.case("shade", name,
+                 lambda a=args, k=kw: RK.fused_shade_cuda(*a, **k),
+                 lambda a=args, k=kw: RK.fused_shade_plain(*a, **k),
+                 cmp, shade_work(args, kw))
+    return diffs
 
 
 def _cmp_pairs(a, b, exact_bits: bool, tol: float = 0.0):
@@ -302,18 +556,36 @@ def _cmp_pairs(a, b, exact_bits: bool, tol: float = 0.0):
 
 
 def frame_run(eng, n_warm: int = 2, n_timed: int = 8):
-    """The port's main path: warm-up + timed frames → (median ms, u8)."""
+    """The port's main path: warm-up + timed frames → (median ms, the
+    frame times, u8, median ms until the call returned, i.e. the host's
+    enqueue time before the final synchronize)."""
     out = None
     for _ in range(n_warm):
         out = eng.render_realtime_device()
     sync()
-    times = []
+    times, enqueue = [], []
     for _ in range(n_timed):
         t0 = time.perf_counter()
         out = eng.render_realtime_device()
+        enqueue.append((time.perf_counter() - t0) * 1e3)
         sync()
         times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times), times, out
+    return statistics.median(times), times, out, statistics.median(enqueue)
+
+
+def interleaved(engines: dict, n_pairs: int) -> dict:
+    """Frame times of several engines rendered in turns, the order
+    reversed every other turn: {label: [ms, ...]}."""
+    out = {k: [] for k in engines}
+    labels = list(engines)
+    for i in range(n_pairs):
+        for label in (labels if i % 2 == 0 else labels[::-1]):
+            sync()
+            t0 = time.perf_counter()
+            engines[label].render_realtime_device()
+            sync()
+            out[label].append((time.perf_counter() - t0) * 1e3)
+    return out
 
 
 def _merged_us(intervals) -> float:
@@ -379,12 +651,38 @@ def profile_frames(eng, n: int = 3) -> dict:
         by_name[e.name][0] += 1
         by_name[e.name][1] += e.time_range.elapsed_us() / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
+    # CUDA runtime calls on the host: launches, copies, synchronisations
+    api: dict = {}
+    for e in host:
+        if e.name.startswith("cuda"):
+            api.setdefault(e.name, [0, 0.0])
+            api[e.name][0] += 1
+            api[e.name][1] += e.time_range.elapsed_us() / 1e3
     return dict(frames=n, wall_ms_per_frame=wall_ms / n,
                 span_ms=span_ms, device_busy_ms=busy_ms,
                 device_busy_share=busy_ms / span_ms if span_ms else None,
                 device_kernels_per_frame=len(dev) / n, stages=stages,
                 top_kernels=[dict(name=k[:80], count=c, ms_per_frame=t / n)
-                             for k, (c, t) in top])
+                             for k, (c, t) in top],
+                runtime_calls={k: dict(per_frame=c / n, ms_per_frame=t / n)
+                               for k, (c, t) in sorted(
+                                   api.items(), key=lambda kv: -kv[1][1])})
+
+
+def log_profile(label: str, prof: dict):
+    log(f"profile of {prof['frames']} frames ({label}): "
+        f"{prof['wall_ms_per_frame']:.3f} ms/frame under the profiler, "
+        f"device busy {prof['device_busy_share']:.4f} of the window, "
+        f"{prof['device_kernels_per_frame']:.0f} device ops/frame")
+    for name, st in prof["stages"].items():
+        log(f"  {name:15s} host {st['host_ms']:.3f} ms  device busy "
+            f"{st['device_busy_ms']:.3f} ms  "
+            f"{st['device_events_per_frame']:.0f} device ops")
+    for k in prof["top_kernels"][:8]:
+        log(f"  {k['ms_per_frame']:.4f} ms/frame  x{k['count']}  {k['name']}")
+    for name, c in list(prof["runtime_calls"].items())[:6]:
+        log(f"  host {name}: {c['per_frame']:.1f} calls, "
+            f"{c['ms_per_frame']:.3f} ms per frame")
 
 
 def copy_states(src, dst):
@@ -402,15 +700,15 @@ def copy_states(src, dst):
     dst.frame_index = src.frame_index
 
 
-def whole_frame_vs_cpu(width: int, height: int):
+def whole_frame_vs_cpu(settings):
     """Frames 1 and 2 with the kernels on the card against the plain
     versions on the CPU; frame 2 starts both from the card's frame-1
     state.  Bars of tests/test_torch_slice.py."""
     import torch
-    from rtvb_tpu_torch.render.renderer import Engine, slice_settings
-    st = slice_settings(width, height)
-    gpu = Engine(settings=st, device="cuda")
-    cpu = Engine(settings=st, device="cpu")
+    from rtvb_tpu_torch.render.renderer import Engine
+    gpu = Engine(settings=settings, device="cuda")
+    cpu = Engine(settings=settings, device="cpu")
+    width, height = gpu.width, gpu.height
     results = []
     for frame in range(2):
         if frame == 1:
@@ -465,26 +763,39 @@ def main() -> int:
     with open(os.path.join(LOG_DIR, "nvcc_ptxas.log"), "w") as f:
         f.write(K.LIBRARY.build_log or "")
 
+    from rtvb_tpu_torch.core.config import Settings
     from rtvb_tpu_torch.render.renderer import Engine, slice_settings
     fw, fh = FRAME
+    shipped = Settings().replace(rendering={"render_width": fw,
+                                            "render_height": fh})
     t0 = time.perf_counter()
-    eng = Engine(settings=slice_settings(fw, fh), device="cuda")
+    eng = Engine(settings=shipped, device="cuda")
     log(f"engine init {fw}x{fh}: {time.perf_counter() - t0:.1f} s, "
         f"textures {len(eng.texture_atlas_names)}, lights {eng.lights.count}")
+    rs = eng.settings.rendering
+    check(rs.fused_shading and rs.render_scale == 1.0,
+          "the main path must run the shipped defaults")
 
     log("kernels against their plain versions (CUDA events, median of 10):")
     rep = Report()
     kernel_cases(eng, rep)
+    shade_diffs = shade_kernel_cases(eng, rep)
 
     # the main path: counts are reset right before and read right after
+    n_warm, n_timed = 2, 8
     K.reset_launch_counts()
-    frame_ms, times, out = frame_run(eng)
+    frame_ms, times, out, enq_ms = frame_run(eng, n_warm, n_timed)
     counts = K.launch_counts()
-    log(f"frame {fw}x{fh} (1 spp, denoised, u8): median {frame_ms:.3f} ms "
-        f"over {len(times)} frames {[round(t, 3) for t in times]}")
+    log(f"frame {fw}x{fh} (shipped settings, 1 spp, denoised, u8): median "
+        f"{frame_ms:.3f} ms over {len(times)} frames "
+        f"{[round(t, 3) for t in times]}; host enqueue median "
+        f"{enq_ms:.3f} ms")
     log(f"launch counts over the main-path run: {counts}")
     for name in KERNELS:
         check(counts.get(name, 0) > 0, f"kernel {name} never launched")
+    n_frames = n_warm + n_timed
+    check(counts["shade"] == rs.total_bounce_limit * n_frames,
+          f"shade launched {counts['shade']} times in {n_frames} frames")
     u8 = out.cpu().numpy()
     check(u8.shape == (fh, fw, 3) and u8.dtype == np.uint8,
           f"frame shape {u8.shape} {u8.dtype}")
@@ -493,20 +804,37 @@ def main() -> int:
     log(f"frame u8: shape {u8.shape}, mean {u8.mean():.2f}, std "
         f"{u8.std():.2f}")
 
-    prof = profile_frames(eng)
-    log(f"profile of {prof['frames']} frames {fw}x{fh}: "
-        f"{prof['wall_ms_per_frame']:.3f} ms/frame under the profiler, "
-        f"device busy {prof['device_busy_share']:.4f} of the window, "
-        f"{prof['device_kernels_per_frame']:.0f} device ops/frame")
-    for name, st in prof["stages"].items():
-        log(f"  {name:15s} host {st['host_ms']:.3f} ms  device busy "
-            f"{st['device_busy_ms']:.3f} ms  "
-            f"{st['device_events_per_frame']:.0f} device ops")
-    for k in prof["top_kernels"][:8]:
-        log(f"  {k['ms_per_frame']:.4f} ms/frame  x{k['count']}  {k['name']}")
+    # the in-line configuration (fused shading off), for the record: the
+    # host's speed drifts within a call, so the two engines render in turns
+    # (fused, in-line, in-line, fused, ...) and each keeps its own median
+    inline = Engine(settings=slice_settings(fw, fh), device="cuda")
+    for _ in range(n_warm):
+        inline.render_realtime_device()
+    ab = interleaved({"fused": eng, "inline": inline}, n_pairs=8)
+    inline_ms = statistics.median(ab["inline"])
+    for label, ts in ab.items():
+        log(f"frame {fw}x{fh} in turns, {label}: median "
+            f"{statistics.median(ts):.3f} ms {[round(t, 3) for t in ts]}")
+    wins = sum(a < b for a, b in zip(ab["fused"], ab["inline"]))
+    log(f"fused faster than in-line in {wins} of {len(ab['fused'])} turns")
 
-    log("whole frame, kernels on the card vs plain versions on the CPU:")
-    whole = whole_frame_vs_cpu(*VS_CPU)
+    prof = profile_frames(eng)
+    log_profile(f"shipped settings {fw}x{fh}", prof)
+    prof_inline = profile_frames(inline)
+    log_profile(f"in-line shading {fw}x{fh}", prof_inline)
+    del inline
+
+    whole = {}
+    for label, st in (("shipped", Settings().replace(rendering={
+            "render_width": VS_CPU[0], "render_height": VS_CPU[1]})),
+            ("inline", slice_settings(*VS_CPU))):
+        log(f"whole frame ({label}), kernels on the card vs plain versions "
+            f"on the CPU:")
+        shade0 = K.launch_counts()["shade"]
+        whole[label] = whole_frame_vs_cpu(st)
+        check((K.launch_counts()["shade"] > shade0)
+              == st.rendering.fused_shading,
+              f"{label}: K4 launches do not match fused_shading")
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():
@@ -516,12 +844,17 @@ def main() -> int:
             name=name, route="cuda", source=src, replaces=replaces,
             launches=counts[name],
             max_abs_err=max(c["max_abs_err"] for c in cs),
-            ms=main_case["ms"], plain_ms=main_case["plain_ms"]))
+            ms=main_case["ms"], plain_ms=main_case["plain_ms"],
+            bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
+            library_ms=main_case["library_ms"]))
     with open(os.path.join(LOG_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, frame=FRAME, frame_ms=frame_ms,
-                       frame_ms_all=times,
-                       launches=counts, cases=rep.cases, whole_frame=whole,
-                       profile=prof, kernels=kernels), f, indent=1)
+                       frame_ms_all=times, enqueue_ms=enq_ms,
+                       in_turns_ms=ab, inline_frame_ms=inline_ms,
+                       launches=counts, cases=rep.cases,
+                       shade_diffs=shade_diffs, whole_frame=whole,
+                       profile=prof, profile_inline=prof_inline,
+                       kernels=kernels), f, indent=1)
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

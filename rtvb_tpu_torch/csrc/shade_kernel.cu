@@ -1,0 +1,464 @@
+// K4 — fused per-bounce shading: streaming RIS over n_local local-light
+// candidates plus the sun and sky candidates (MIS-weighted), the temporal
+// ReSTIR combine of n_taps warped reservoirs (M cap, depth / normal tests,
+// light-slot remap), winner shading before visibility, and the Disney BSDF
+// continuation sample with its pdf proxy.  26 SoA planes out (ShadeOut).
+//
+// Replaces: rtvb_tpu/render/ris_kernel.py:484 `_shade_tiles` (`_make_kernel`
+// over `_fused_body`).  Plain version: rtvb_tpu_torch/render/ris_kernel.py
+// `fused_shade_plain`; device math in shade_math.cuh.
+//
+// What bounds it on Hopper: memory traffic at the frame's sizes.  Bounce 0
+// at 1920×1080 with 3 taps and blue noise reads 15 + 1 + 3·9 + 4 = 47
+// planes and writes 26: 73 × 4 B × 2,073,600 px ≈ 605 MB, ≈ 0.18 ms at
+// 3.35 TB/s; the half-res bounces (19 in, 26 out) ≈ 93 MB, ≈ 0.03 ms.  The
+// arithmetic (a few hundred flops a pixel, a dozen transcendentals per
+// candidate) stays below the bytes unless n_local is large.  Design: one
+// thread per pixel, blocks of 128 over the flat pixel index, every input
+// plane read once, coalesced; the per-frame tables (the 72-float sky / sun
+// vector, the env alias rows, the blue-noise Sobol terms of this launch's
+// dimensions) are staged in shared memory per block; the light table
+// (18 + 3 rows × K slots) is read through the read-only cache, so K and the
+// env map have none of the TPU's one-lane-row limits.  The random numbers
+// are drawn in the kernel in the plain version's order (native uint32
+// PCG, or the blue-noise byte planes).  The tap combine runs in two passes
+// — the confidence sum first, then each tap decoded again and merged — so
+// no tap's 11 values stay live across the others.  The shipped frame's
+// (n_local, n_taps) pairs are compile-time instances with unrolled loops;
+// any other pair runs the generic instance with runtime counts.
+#include "shade_math.cuh"
+
+namespace {
+
+using namespace rtvb::shade;
+
+constexpr int THREADS = 128;
+constexpr int MAX_TAPS = 4;                // ris_kernel.MAX_TAPS
+constexpr int MAX_LOCAL = 16;              // ris_kernel.MAX_LOCAL
+constexpr int MAX_DRAWS = 5 * MAX_LOCAL + 10 + MAX_TAPS;
+constexpr int ENV_N = 32;
+constexpr int N_IN_MAX = 15 + 1 + 9 * MAX_TAPS + 4;
+constexpr int N_OUT_F = 22, N_OUT_I = 4;
+constexpr int KIND_LOCAL = 1, KIND_SUN = 2, KIND_SKY = 3;
+// rows of the flat light tables (ris_kernel.LF_* / LI_*)
+constexpr int LF_V0X = 0, LF_E1X = 3, LF_E2X = 6, LF_NX = 9, LF_AREA = 12,
+              LF_RADR = 13, LF_PROB = 16, LF_PMF = 17;
+constexpr int LI_ALIAS = 0, LI_ENT = 1, LI_REMAP = 2;
+constexpr float INV_ENV_OMEGA = 5.092958178940651f;   // float(1/(2π/32))
+
+struct ShadeIO {
+  const float* in[N_IN_MAX];
+  float* out_f[N_OUT_F];
+  int* out_i[N_OUT_I];
+};
+
+struct ShadeParams {
+  const float* sf;
+  const float* lf;
+  const int* li;
+  const float* envf;
+  const int* envi;
+  const uint32_t* basis;
+  int HW, W, y0, K, n_local, n_taps, base_dim, n_draws;
+  uint32_t frame;
+  bool ent_unreachable;
+  float m_cap, dis_thr;
+};
+
+struct Reservoir {
+  int kind, slot;
+  float fa, fb;
+  V3 dir;
+  float dist;
+  V3 le;
+  float phat, wsum;
+};
+
+struct Ctx {
+  const ShadeParams& P;
+  const float* sob;      // to_unit_float(sobol(frame, base_dim + k)), BN
+  uint32_t base;
+  uint32_t bnw[4];
+  Mat mat;
+  V3 p, n, wo;
+
+  template <bool BN>
+  __device__ __forceinline__ float draw(int k) const {
+    const int dim = P.base_dim + k;
+    if (BN) return bn_draw(bnw, sob[k], dim);
+    return pcg_draw(base, P.frame, dim);
+  }
+  __device__ __forceinline__ float lf(int row, int slot) const {
+    return __ldg(P.lf + row * P.K + rtvb::clampi(slot, 0, P.K - 1));
+  }
+  __device__ __forceinline__ int li(int row, int slot) const {
+    return __ldg(P.li + row * P.K + rtvb::clampi(slot, 0, P.K - 1));
+  }
+  // one RIS candidate into the streaming reservoir
+  __device__ __forceinline__ void stream(Reservoir& r, V3 wi, float dist,
+                                         V3 le, float src_pdf, float u,
+                                         int kind, int slot, float fa,
+                                         float fb, float mis_w,
+                                         bool force_full) const {
+    const EvalLum el = eval_lum(mat, n, wo, wi);
+    const float cos_i = clamp_min(dot(n, wi), 0.0f);
+    const float p_hat = el.f * cos_i * lum(le);
+    float balance = src_pdf * (1.0f / clamp_min(src_pdf + el.pdf, 1e-9f));
+    if (force_full) balance = 1.0f;
+    const float w = src_pdf > 1e-9f ? mis_w * balance * p_hat *
+                                          (1.0f / clamp_min(src_pdf, 1e-9f))
+                                    : 0.0f;
+    r.wsum = r.wsum + w;
+    if ((u * clamp_min(r.wsum, 1e-20f)) < w) {
+      r.kind = kind;
+      r.slot = slot;
+      r.fa = fa;
+      r.fb = fb;
+      r.dir = wi;
+      r.dist = dist;
+      r.le = le;
+      r.phat = p_hat;
+    }
+  }
+};
+
+struct Tap {
+  int kind, slot;
+  float fa, fb, W, M;
+  V3 wi, le;
+  float dist, phat;
+  bool valid;
+};
+
+// tap t's stored reservoir at this pixel; `full` also reconstructs the
+// sample at the current surface (pass 2), else only validity and capped M
+__device__ __forceinline__ Tap decode_tap(const Ctx& c, const ShadeIO& io,
+                                          int t, int pix, float depth,
+                                          bool full) {
+  const float* const* pl = io.in + 16 + 9 * t;
+  auto word = [&](int k) { return __float_as_uint(__ldg(pl[k] + pix)); };
+  Tap tp;
+  const int w0 = static_cast<int>(word(0));
+  tp.kind = w0 & 3;
+  int pslot = w0 >> 2;
+  const uint32_t m_le = word(4);
+  const float pM = rtvb::bf16_lo(m_le);
+  const float pdepth = __ldg(pl[5] + pix);
+  const uint32_t nw = word(6);
+  const V3 pn = octa_decode(rtvb::bf16_lo(nw), rtvb::bf16_hi(nw));
+  const int tvalid = __float_as_int(__ldg(pl[8] + pix));
+  const bool depth_ok = fabsf(pdepth - depth) <=
+                        c.P.dis_thr * clamp_min(depth, 1.0f);
+  const bool normal_ok = dot(pn, c.n) > 0.8f;
+  bool valid = (tvalid != 0) && depth_ok && normal_ok && (tp.kind != 0) &&
+               (depth < rtvb::BIG);
+  const int remapped = c.li(LI_REMAP, pslot);
+  const bool is_local = tp.kind == KIND_LOCAL;
+  valid = valid && !(is_local && remapped < 0);
+  if (is_local) pslot = remapped > 0 ? remapped : 0;
+  tp.slot = pslot;
+  tp.valid = valid;
+  tp.M = valid ? clamp_max(pM, c.P.m_cap) : 0.0f;
+  if (!full) return tp;
+
+  const uint32_t fw = word(1), dw = word(2), lw = word(7);
+  tp.fa = rtvb::bf16_lo(fw);
+  tp.fb = rtvb::bf16_hi(fw);
+  const V3 pdir = octa_decode(rtvb::bf16_lo(dw), rtvb::bf16_hi(dw));
+  tp.W = __ldg(pl[3] + pix);
+  const V3 lp = {
+      c.lf(LF_V0X, pslot) + tp.fa * c.lf(LF_E1X, pslot) +
+          tp.fb * c.lf(LF_E2X, pslot),
+      c.lf(LF_V0X + 1, pslot) + tp.fa * c.lf(LF_E1X + 1, pslot) +
+          tp.fb * c.lf(LF_E2X + 1, pslot),
+      c.lf(LF_V0X + 2, pslot) + tp.fa * c.lf(LF_E1X + 2, pslot) +
+          tp.fb * c.lf(LF_E2X + 2, pslot)};
+  const V3 to_l = sub(lp, c.p);
+  const float d2 = clamp_min(dot(to_l, to_l), 1e-6f);
+  const float inv_d = rsqrtf(d2);
+  const bool is_dist = tp.kind == KIND_SUN || tp.kind == KIND_SKY;
+  if (is_local) {
+    tp.wi = scale(to_l, inv_d);
+    tp.dist = d2 * inv_d;
+    tp.le = {c.lf(LF_RADR, pslot), c.lf(LF_RADR + 1, pslot),
+             c.lf(LF_RADR + 2, pslot)};
+  } else {
+    tp.wi = pdir;
+    tp.dist = rtvb::BIG;
+    tp.le = is_dist ? V3{rtvb::bf16_lo(lw), rtvb::bf16_hi(lw),
+                         rtvb::bf16_hi(m_le)}
+                    : V3{0.0f, 0.0f, 0.0f};
+  }
+  const EvalLum el = eval_lum(c.mat, c.n, c.wo, tp.wi);
+  const float cos_i = clamp_min(dot(c.n, tp.wi), 0.0f);
+  tp.phat = valid ? el.f * cos_i * lum(tp.le) : 0.0f;
+  return tp;
+}
+
+template <int NL, int NT, bool BN>
+__global__ void __launch_bounds__(THREADS)
+    shade_kernel(const __grid_constant__ ShadeIO io,
+                 const __grid_constant__ ShadeParams P) {
+  __shared__ float s_sf[SF_LEN];
+  __shared__ float s_envf[2 * ENV_N];
+  __shared__ int s_envi[ENV_N];
+  __shared__ float s_sob[BN ? MAX_DRAWS : 1];
+  for (int i = threadIdx.x; i < SF_LEN; i += THREADS) s_sf[i] = P.sf[i];
+  for (int i = threadIdx.x; i < 2 * ENV_N; i += THREADS)
+    s_envf[i] = P.envf[i];
+  for (int i = threadIdx.x; i < ENV_N; i += THREADS) s_envi[i] = P.envi[i];
+  if (BN)
+    for (int i = threadIdx.x; i < P.n_draws; i += THREADS)
+      s_sob[i] = to_unit_float(sobol(P.basis, P.frame, P.base_dim + i));
+  __syncthreads();
+
+  const int pix = blockIdx.x * THREADS + threadIdx.x;
+  if (pix >= P.HW) return;
+  const int n_local = NL >= 0 ? NL : P.n_local;
+  const int n_taps = NT >= 0 ? NT : P.n_taps;
+
+  auto in = [&](int k) { return __ldg(io.in[k] + pix); };
+  Ctx c{P, s_sob};
+  c.p = {in(0), in(1), in(2)};
+  c.n = {in(3), in(4), in(5)};
+  c.wo = {in(6), in(7), in(8)};
+  c.mat = {in(9), in(10), in(11), in(12), in(13), in(14)};
+  const int bn_at = 15 + (n_taps > 0 ? 1 + 9 * n_taps : 0);
+  if (BN) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      c.bnw[i] = __float_as_uint(__ldg(io.in[bn_at + i] + pix));
+  } else {
+    // the wave's own pixel coordinates, rows offset by y0
+    const uint32_t px = static_cast<uint32_t>(pix % P.W);
+    const uint32_t py = static_cast<uint32_t>(pix / P.W + P.y0);
+    const uint32_t h0 = pcg_hash(0x9E3779B9u ^ px);
+    c.base = pcg_hash(h0 ^ (py * 9277u));
+  }
+
+  Reservoir r;
+  r.kind = 0;
+  r.slot = 0;
+  r.fa = r.fb = 0.0f;
+  r.dir = {0.0f, 0.0f, 0.0f};
+  r.dist = rtvb::BIG;
+  r.le = {0.0f, 0.0f, 0.0f};
+  r.phat = r.wsum = 0.0f;
+  const bool any_lights = s_sf[SF_ANY_LIGHTS] > 0.5f;
+  int k = 0;    // draw index within this bounce
+
+  // local light candidates (alias-sampled slot, uniform triangle point)
+  const float mis_local =
+      n_local > 0 ? static_cast<float>(1.0 / static_cast<double>(n_local))
+                  : 0.0f;
+#pragma unroll (NL > 0 ? NL : 1)
+  for (int cand = 0; cand < (NL >= 0 ? NL : MAX_LOCAL); ++cand) {
+    if (NL < 0 && cand >= n_local) break;
+    const float u_slot = c.draw<BN>(k), u_take = c.draw<BN>(k + 1);
+    const float u2 = c.draw<BN>(k + 3), u3 = c.draw<BN>(k + 4);
+    k += 5;
+    const float un = u_slot * static_cast<float>(P.K);
+    const int col = rtvb::clampi(static_cast<int>(un), 0, P.K - 1);
+    const float frac = un - static_cast<float>(col);
+    const int slot = frac < c.lf(LF_PROB, col) ? col : c.li(LI_ALIAS, col);
+    const float pmf = c.lf(LF_PMF, slot);
+    const bool flip = (u2 + u3) > 1.0f;
+    const float fa = flip ? 1.0f - u2 : u2;
+    const float fb = flip ? 1.0f - u3 : u3;
+    const V3 lp = {
+        c.lf(LF_V0X, slot) + fa * c.lf(LF_E1X, slot) +
+            fb * c.lf(LF_E2X, slot),
+        c.lf(LF_V0X + 1, slot) + fa * c.lf(LF_E1X + 1, slot) +
+            fb * c.lf(LF_E2X + 1, slot),
+        c.lf(LF_V0X + 2, slot) + fa * c.lf(LF_E1X + 2, slot) +
+            fb * c.lf(LF_E2X + 2, slot)};
+    const V3 ln = {c.lf(LF_NX, slot), c.lf(LF_NX + 1, slot),
+                   c.lf(LF_NX + 2, slot)};
+    const float area = c.lf(LF_AREA, slot);
+    const V3 to_l = sub(lp, c.p);
+    const float dist2 = clamp_min(dot(to_l, to_l), 1e-6f);
+    const float inv_dist = rsqrtf(dist2);
+    const float dist = dist2 * inv_dist;
+    const V3 wi = scale(to_l, inv_dist);
+    const float cos_l = clamp_min(dot(ln, neg(wi)), 0.0f);
+    const float pdf_sa = pmf * (1.0f / clamp_min(area, 1e-8f)) * dist2 *
+                         (1.0f / clamp_min(cos_l, 1e-6f));
+    V3 le = {c.lf(LF_RADR, slot), c.lf(LF_RADR + 1, slot),
+             c.lf(LF_RADR + 2, slot)};
+    if (!((cos_l > 0.0f) && any_lights)) le = {0.0f, 0.0f, 0.0f};
+    const bool force = P.ent_unreachable && c.li(LI_ENT, slot) > 0;
+    c.stream(r, wi, dist, le, pdf_sa, u_take, KIND_LOCAL, slot, fa, fb,
+             mis_local, force);
+  }
+
+  {  // sun candidate: uniform cone around the sun direction
+    const float u1 = c.draw<BN>(k), u2 = c.draw<BN>(k + 1);
+    const float u_take = c.draw<BN>(k + 2);
+    k += 3;
+    const float cos_t = 1.0f - u1 * (1.0f - s_sf[SF_COS_SUN]);
+    const float sin_t = sqrtf(clamp_min(1.0f - cos_t * cos_t, 0.0f));
+    const float phi = TWO_PI_F * u2;
+    const V3 local = {sin_t * cosf(phi), sin_t * sinf(phi), cos_t};
+    const V3 sun = {s_sf[SF_SUN_X], s_sf[SF_SUN_X + 1], s_sf[SF_SUN_X + 2]};
+    V3 t_, bt_;
+    onb(sun, t_, bt_);
+    c.stream(r, from_local(local, t_, bt_, sun), rtvb::BIG,
+             sun_radiance_cone(sin_t, s_sf), s_sf[SF_PDF_SUN], u_take,
+             KIND_SUN, 0, 0.0f, 0.0f, 1.0f, false);
+  }
+  {  // sky candidate: env alias sample + analytic radiance
+    const float u1 = c.draw<BN>(k), u2 = c.draw<BN>(k + 1);
+    const float u3 = c.draw<BN>(k + 2), u_take = c.draw<BN>(k + 3);
+    k += 4;
+    const float un = u1 * static_cast<float>(ENV_N);
+    const int col = rtvb::clampi(static_cast<int>(un), 0, ENV_N - 1);
+    const float frac = un - static_cast<float>(col);
+    const int texel = frac < s_envf[col] ? col : s_envi[col];
+    const float pmf = s_envf[ENV_N + rtvb::clampi(texel, 0, ENV_N - 1)];
+    const float iu = static_cast<float>(rtvb::pymod(texel, 8));
+    const float iv = static_cast<float>(texel >= 0 ? texel / 8
+                                                   : -((-texel + 7) / 8));
+    const float phi = TWO_PI_F * (iu + u2) * 0.125f;
+    const float cos_t = 1.0f - (iv + u3) * 0.25f;
+    const float sin_t = sqrtf(clamp_min(1.0f - cos_t * cos_t, 0.0f));
+    const V3 wi_sky = {sin_t * cosf(phi), cos_t, sin_t * sinf(phi)};
+    c.stream(r, wi_sky, rtvb::BIG, sky_radiance(wi_sky, s_sf),
+             pmf * INV_ENV_OMEGA, u_take, KIND_SKY, 0, 0.0f, 0.0f, 1.0f,
+             false);
+  }
+
+  // temporal reservoir combine (restir.temporal_combine role)
+  float M_new;
+  if (n_taps > 0) {
+    const int k_taps = k;
+    k += n_taps;
+    const float depth = in(15);
+    const float W_cur = r.phat > 1e-9f
+                            ? r.wsum * (1.0f / clamp_min(r.phat, 1e-9f))
+                            : 0.0f;
+    float m_sum = 0.0f;    // Python's sum(): 0 + M0 + M1 + ...
+#pragma unroll (NT > 0 ? NT : 1)
+    for (int t = 0; t < (NT >= 0 ? NT : MAX_TAPS); ++t) {
+      if (NT < 0 && t >= n_taps) break;
+      m_sum = m_sum + decode_tap(c, io, t, pix, depth, false).M;
+    }
+    const float c_total = 1.0f + m_sum;
+    const float inv_ct = 1.0f / c_total;
+    float wsum = inv_ct * r.phat * W_cur;
+#pragma unroll 1
+    for (int t = 0; t < (NT >= 0 ? NT : MAX_TAPS); ++t) {
+      if (NT < 0 && t >= n_taps) break;
+      const Tap tp = decode_tap(c, io, t, pix, depth, true);
+      const float w_t = (tp.M * inv_ct) * tp.phat * tp.W;
+      wsum = wsum + w_t;
+      if (tp.valid &&
+          ((c.draw<BN>(k_taps + t) * clamp_min(wsum, 1e-20f)) < w_t)) {
+        r.kind = tp.kind;
+        r.slot = tp.slot;
+        r.fa = tp.fa;
+        r.fb = tp.fb;
+        r.dir = tp.wi;
+        r.dist = tp.dist;
+        r.le = tp.le;
+        r.phat = tp.phat;
+      }
+    }
+    r.wsum = wsum;
+    M_new = c_total;
+  } else {
+    M_new = static_cast<float>(n_local + 2);
+  }
+  const float W_new =
+      r.phat > 1e-9f ? r.wsum * (1.0f / clamp_min(r.phat, 1e-9f)) : 0.0f;
+
+  // winner shading (pre-visibility): full per-channel BSDF
+  const Eval ev = evaluate(c.mat, c.n, c.wo, r.dir);
+  const float cos2 = clamp_min(dot(c.n, r.dir), 0.0f);
+  const V3 nee = {ev.f.x * cos2 * r.le.x * W_new,
+                  ev.f.y * cos2 * r.le.y * W_new,
+                  ev.f.z * cos2 * r.le.z * W_new};
+
+  // BSDF continuation sample + MIS pdf proxy
+  const Sample s = sample(c.mat, c.n, c.wo, c.draw<BN>(k), c.draw<BN>(k + 1),
+                          c.draw<BN>(k + 2));
+  const float pcp = s.is_delta ? 0.0f : eval_lum(c.mat, c.n, c.wo, s.wi).pdf;
+
+  const float outs[N_OUT_F] = {
+      r.fa,     r.fb,     r.dir.x,    r.dir.y,    r.dir.z,    r.dist,
+      r.le.x,   r.le.y,   r.le.z,     r.phat,     M_new,      W_new,
+      nee.x,    nee.y,    nee.z,      s.wi.x,     s.wi.y,     s.wi.z,
+      s.weight.x, s.weight.y, s.weight.z, pcp};
+#pragma unroll
+  for (int i = 0; i < N_OUT_F; ++i) io.out_f[i][pix] = outs[i];
+  io.out_i[0][pix] = r.kind;
+  io.out_i[1][pix] = r.slot;
+  io.out_i[2][pix] = s.is_delta ? 1 : 0;
+  io.out_i[3][pix] = s.is_trans ? 1 : 0;
+}
+
+template <int NL, int NT, bool BN>
+void launch(const ShadeIO& io, const ShadeParams& P, cudaStream_t s) {
+  shade_kernel<NL, NT, BN>
+      <<<rtvb::blocks_for(P.HW, THREADS), THREADS, 0, s>>>(io, P);
+}
+
+template <bool BN>
+void dispatch(const ShadeIO& io, const ShadeParams& P, cudaStream_t s) {
+  // the shipped frame: no local lights (0, 3) / (0, 0); with lights the
+  // primary vertex's 8 candidates + 3 taps and the secondary 2 + none
+  if (P.n_local == 0 && P.n_taps == 3) return launch<0, 3, BN>(io, P, s);
+  if (P.n_local == 0 && P.n_taps == 0) return launch<0, 0, BN>(io, P, s);
+  if (P.n_local == 8 && P.n_taps == 3) return launch<8, 3, BN>(io, P, s);
+  if (P.n_local == 2 && P.n_taps == 0) return launch<2, 0, BN>(io, P, s);
+  launch<-1, -1, BN>(io, P, s);
+}
+
+}  // namespace
+
+// in / out_f / out_i: host arrays of device plane pointers, in
+// ris_kernel.fused_shade_cuda's order.  Returns a cudaError_t code.
+RTVB_EXPORT int rtvb_shade(const void* const* in, int n_in,
+                           void* const* out_f, void* const* out_i,
+                           const float* sf, const float* lf, const int* li,
+                           const float* envf, const int* envi,
+                           const int* basis, int H, int W, int y0,
+                           unsigned int frame, int K, int n_local, int n_taps,
+                           int base_dim, int ent_unreachable, int blue_noise,
+                           float m_cap, float dis_thr, void* stream) {
+  if (n_taps < 0 || n_taps > MAX_TAPS || n_local < 0 ||
+      n_local > MAX_LOCAL || K < 1 ||
+      n_in != 15 + (n_taps > 0 ? 1 + 9 * n_taps : 0) + (blue_noise ? 4 : 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long HW = static_cast<long long>(H) * W;
+  if (HW == 0) return 0;
+  ShadeIO io;
+  for (int i = 0; i < N_IN_MAX; ++i)
+    io.in[i] = i < n_in ? static_cast<const float*>(in[i]) : nullptr;
+  for (int i = 0; i < N_OUT_F; ++i) io.out_f[i] = static_cast<float*>(out_f[i]);
+  for (int i = 0; i < N_OUT_I; ++i) io.out_i[i] = static_cast<int*>(out_i[i]);
+  ShadeParams P;
+  P.sf = sf;
+  P.lf = lf;
+  P.li = li;
+  P.envf = envf;
+  P.envi = envi;
+  P.basis = reinterpret_cast<const uint32_t*>(basis);
+  P.HW = static_cast<int>(HW);
+  P.W = W;
+  P.y0 = y0;
+  P.K = K;
+  P.n_local = n_local;
+  P.n_taps = n_taps;
+  P.base_dim = base_dim;
+  P.n_draws = 5 * n_local + 10 + n_taps;
+  P.frame = frame;
+  P.ent_unreachable = ent_unreachable != 0;
+  P.m_cap = m_cap;
+  P.dis_thr = dis_thr;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (blue_noise)
+    dispatch<true>(io, P, s);
+  else
+    dispatch<false>(io, P, s);
+  return rtvb::launch_status();
+}

@@ -109,6 +109,26 @@ def post_state(jp, device="cpu") -> PostState:
                                            device=device))
 
 
+def shade_tables(lf, li, envf, envi, k_slots: int, device="cpu"):
+    """The JAX package's packed fused-shade tables — (N_LF·R, 128) f32 and
+    (N_LI·R, 128) i32 light rows (row `f·R + h` holds slots h·128 ..
+    h·128+127 of field f), (2, 128) f32 and (1, 128) i32 env rows — as
+    the port's flat (N_LF, K), (N_LI, K), (2, ENV_N), (1, ENV_N)."""
+    from .render.ris_kernel import ENV_N
+
+    lf, li = _np(lf).astype(np.float32), _np(li).astype(np.int32)
+    R = -(-k_slots // lf.shape[1])
+
+    def rows(a):
+        n = a.shape[0] // R
+        return np.ascontiguousarray(a.reshape(n, R * a.shape[1])[:, :k_slots])
+    return (_t(rows(lf), device), _t(rows(li), device),
+            _t(np.ascontiguousarray(_np(envf).astype(np.float32)[:, :ENV_N]),
+               device),
+            _t(np.ascontiguousarray(_np(envi).astype(np.int32)[:, :ENV_N]),
+               device))
+
+
 def engine_from_jax(jax_engine, engine):
     """Overwrite the port engine's world, tables, sky, atlas, cameras and
     feedback states with the JAX engine's (same settings assumed)."""

@@ -1,7 +1,8 @@
 """Build, load and launch the hand-written CUDA kernels in ``csrc/``.
 
-All ``csrc/*.cu`` files compile with ``nvcc`` into ONE shared library with
-a plain C interface (``build/kernels/librtvb_kernels.so``), loaded with
+Each ``csrc/*.cu`` file compiles with its own ``nvcc`` process, all
+started together, and the objects link into ONE shared library with a
+plain C interface (``build/kernels/librtvb_kernels.so``), loaded with
 ctypes.  The build runs on first use and again whenever a hash of the
 sources changes; nothing is built at import time, so the CPU tests import
 every module without ``nvcc``.
@@ -31,7 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               # their plain PyTorch versions do, so the two agree to the bit
               "--fmad=false",
               "-Xptxas", "-v",           # registers / spills into build_log
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -87,18 +88,40 @@ class _Library:
                     self.build_seconds = 0.0
                     return out
         t0 = time.perf_counter()
-        tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *[s for s in _sources() if s.endswith(".cu")]]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+        nvcc = _nvcc()
+        tag = f"{os.getpid()}.tmp"
+        jobs = []
+        for src in (s for s in _sources() if s.endswith(".cu")):
+            obj = os.path.join(BUILD_DIR,
+                               os.path.basename(src)[:-3] + f".{tag}.o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for cmd, _, proc in jobs:
+            text, _ = proc.communicate()
+            logs.append(f"$ {' '.join(cmd)}\n{text}")
+            if proc.returncode != 0:
+                failed.append(proc.returncode)
+        tmp = f"{out}.{tag}"
+        link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                "-o", tmp, *[obj for _, obj, _ in jobs]]
+        if not failed:
+            res = subprocess.run(link, capture_output=True, text=True)
+            logs.append(f"$ {' '.join(link)}\n{res.stdout}{res.stderr}")
+            if res.returncode != 0:
+                failed.append(res.returncode)
+        for _, obj, _ in jobs:
+            if os.path.exists(obj):
+                os.remove(obj)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(logs))
         os.replace(tmp, out)
         with open(stamp, "w") as f:
             f.write(want)
         self.build_seconds = time.perf_counter() - t0
-        self.build_log = res.stdout + res.stderr
+        self.build_log = "\n".join(logs)
         return out
 
 

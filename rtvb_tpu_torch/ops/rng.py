@@ -111,6 +111,14 @@ def bn_packed(H: int, W: int, y0: int = 0, step: int = 1, device="cpu"):
         np.tile(t[c], (ry, rx))[:H, :W])).to(device) for c in range(4))
 
 
+@functools.lru_cache(maxsize=4)
+def bn_basis(device="cpu") -> torch.Tensor:
+    """The (256, 8) Sobol XOR basis as int32 bit patterns on `device`
+    (cached: the fused shade kernel computes sobol(frame, dim) from it)."""
+    return torch.from_numpy(np.ascontiguousarray(
+        bn_tables().basis.view(np.int32))).to(device)
+
+
 def bn_sobol_scalar(frame: int, dim: int) -> int:
     """sobol_dim(frame & 255) as a host uint32 (XOR basis over 8 bits)."""
     basis = bn_tables().basis[dim & 255]

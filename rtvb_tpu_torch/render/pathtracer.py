@@ -1,9 +1,11 @@
-"""Wavefront path tracer (port of rtvb_tpu/render/pathtracer.py, the
-in-line shading composition: streaming RIS `_nee_ris` → temporal ReSTIR
-combine → BSDF continuation sample).
+"""Wavefront path tracer (port of rtvb_tpu/render/pathtracer.py).
 
 Every bounce is one trace wave over all pixels (K1, plus K2 for the
-entity/decoration triangles) and masked SoA shading in plain PyTorch.
+entity/decoration triangles), then the bounce's direct lighting and BSDF
+continuation: with `fused_shading` (the shipped default) one call of the
+fused shade kernel (K4, render/ris_kernel.py); without it the in-line
+composition in plain PyTorch (streaming RIS `_nee_ris` → temporal ReSTIR
+combine → BSDF continuation sample).
 The NEE visibility rays of all bounces are deferred into one batched
 any-hit wave per resolution; with half-res GI, bounces ≥ 1 trace one
 representative path per 2×2 quad.  The RNG stream (dimension order) is
@@ -28,6 +30,7 @@ from ..ops.alias_table import take
 from ..ops.dda import BIG, HitRecord, TraceParams, TraceTables, trace
 from ..world.lighting import LightTable, light_radiance, sample_light_point
 from . import restir as restir_mod
+from . import ris_kernel
 from . import sky as sky_mod
 
 SPAWN_EPS = 1e-3
@@ -227,6 +230,7 @@ def render_frame(cfg, tables: TraceTables, tp: TraceParams, mats,
 
     bn_full = rng.bn_packed(H, W, 0, device=dev) if rs_cfg.blue_noise \
         else None
+    bn_cur = bn_full     # the live wave's planes (half-res after GI)
     rs = rng.RandState(px, py, frame_u, 0, bn=bn_full)
     ju, jv = rs.next2()
     o, d = camera_rays(cam, W, height, ju, jv)
@@ -271,6 +275,14 @@ def render_frame(cfg, tables: TraceTables, tp: TraceParams, mats,
     pdf_sun_cone = 1.0 / torch.clamp(2.0 * math.pi * (1.0 - sun_cos_max),
                                      min=1e-9)
     spread = cam.pixel_cone_spread(height)
+
+    fused = rs_cfg.fused_shading
+    if fused:
+        # per-frame tables of the fused shade kernel: light fields, light
+        # ints with the id remap, env alias rows, sky/sun scalars
+        lf_pack, li_pack = ris_kernel.pack_light_tables(lights, light_remap)
+        envf_pack, envi_pack = ris_kernel.pack_env_tables(sky)
+        sf_pack = sky_mod.sky_scalar_pack(sky, lights.count > 0)
 
     shadow_rays: list = []
     shadow_rgb: list = []
@@ -447,33 +459,66 @@ def render_frame(cfg, tables: TraceTables, tp: TraceParams, mats,
                 rs_cfg.secondary_light_candidates)
         eps_p = spawn_eps(p)
         ent_unreach = entities is not None and not rs_cfg.entity_in_bounces
-        res = _nee_ris(rs, lights, sky, m.add(p, m.scale(n, eps_p)), n, wo,
-                       mat, n_cand, sun_cos_max, ent_unreachable=ent_unreach)
-        if bounce == 0 and use_restir:
-            n_taps = max(1, rs_cfg.restir_temporal_samples)
-            u_takes = tuple(rs.next() for _ in range(n_taps))
-            (k2, s2, f2, fa2, fb2, dir2, dist2, le2, phat2, wsum2, M2,
-             W2) = restir_mod.temporal_combine(
-                res.kind, res.slot, res.face, res.fa, res.fb, res.dir,
-                res.dist, res.le, res.wsum, res.target_pdf, prev_restir,
-                g_motion_u, g_motion_v, g_depth, n, p, wo, mat, lights,
-                light_remap, u_takes, frame_idx=frame_u, n_taps=n_taps)
-            origin = m.add(p, m.scale(n, eps_p))
-            live2 = alive & (phat2 > 1e-9)
-            zero = torch.zeros_like(origin[0])
-            vdir = m.where3(live2, dir2, (zero, zero + 1.0, zero))
-            vcap = torch.where(live2, torch.clamp(dist2 - 2.0 * eps_p,
+        if fused:
+            p_off = m.add(p, m.scale(n, eps_p))
+            n_taps_b, taps = 0, ()
+            if bounce == 0 and use_restir:
+                n_taps_b = max(1, rs_cfg.restir_temporal_samples)
+                taps = [(planes, tv.to(torch.int32)) for planes, tv in
+                        restir_mod.warp_taps(prev_restir, g_motion_u,
+                                             g_motion_v, frame_u, n_taps_b)]
+            sh_cfg = ris_kernel.ShadeConfig(
+                n_local=n_cand, n_taps=n_taps_b,
+                k_slots=int(lights.prob.shape[0]), base_dim=8 + bounce * 64,
+                ent_unreachable=ent_unreach,
+                m_cap=float(restir_mod.M_CAP), dis_thr=0.2,
+                blue_noise=bn_cur is not None)
+            out = ris_kernel.fused_shade(
+                sh_cfg, frame_u, 0, sf_pack, lf_pack, li_pack, envf_pack,
+                envi_pack, _c3(p_off), _c3(n), _c3(wo),
+                _c3((mat.albedo_r, mat.albedo_g, mat.albedo_b)),
+                mat.roughness.contiguous(), mat.metallic.contiguous(),
+                mat.translucency.contiguous(),
+                depth=g_depth if n_taps_b else None, taps=taps, bn=bn_cur)
+            nee = out.nee
+            live2 = alive & (out.phat > 1e-9)
+            zero = torch.zeros_like(p[0])
+            vdir = m.where3(live2, out.dir, (zero, zero + 1.0, zero))
+            vcap = torch.where(live2, torch.clamp(out.dist - 2.0 * eps_p,
                                                   min=0.0), 0.0)
-            fv, _ = B.evaluate(mat, n, wo, dir2)
-            cos2 = torch.clamp(m.dot(n, dir2), min=0.0)
-            nee = tuple(fc * cos2 * lc * W2 for fc, lc in zip(fv, le2))
-            restir_pending = (k2, s2, f2, fa2, fb2, dir2, le2, M2, W2,
-                              alive, n)
-            shadow_rays.append((origin, vdir, vcap))
+            shadow_rays.append((p_off, vdir, vcap))
+            if bounce == 0 and use_restir:
+                restir_pending = (out.kind, out.slot, None, out.fa, out.fb,
+                                  out.dir, out.le, out.M, out.W, alive, n)
         else:
-            nee, origin, vdir, vcap = shade_reservoir_deferred(
-                res, p, n, wo, mat, live=alive)
-            shadow_rays.append((origin, vdir, vcap))
+            res = _nee_ris(rs, lights, sky, m.add(p, m.scale(n, eps_p)), n,
+                           wo, mat, n_cand, sun_cos_max,
+                           ent_unreachable=ent_unreach)
+            if bounce == 0 and use_restir:
+                n_taps = max(1, rs_cfg.restir_temporal_samples)
+                u_takes = tuple(rs.next() for _ in range(n_taps))
+                (k2, s2, f2, fa2, fb2, dir2, dist2, le2, phat2, wsum2, M2,
+                 W2) = restir_mod.temporal_combine(
+                    res.kind, res.slot, res.face, res.fa, res.fb, res.dir,
+                    res.dist, res.le, res.wsum, res.target_pdf, prev_restir,
+                    g_motion_u, g_motion_v, g_depth, n, p, wo, mat, lights,
+                    light_remap, u_takes, frame_idx=frame_u, n_taps=n_taps)
+                origin = m.add(p, m.scale(n, eps_p))
+                live2 = alive & (phat2 > 1e-9)
+                zero = torch.zeros_like(origin[0])
+                vdir = m.where3(live2, dir2, (zero, zero + 1.0, zero))
+                vcap = torch.where(live2, torch.clamp(dist2 - 2.0 * eps_p,
+                                                      min=0.0), 0.0)
+                fv, _ = B.evaluate(mat, n, wo, dir2)
+                cos2 = torch.clamp(m.dot(n, dir2), min=0.0)
+                nee = tuple(fc * cos2 * lc * W2 for fc, lc in zip(fv, le2))
+                restir_pending = (k2, s2, f2, fa2, fb2, dir2, le2, M2, W2,
+                                  alive, n)
+                shadow_rays.append((origin, vdir, vcap))
+            else:
+                nee, origin, vdir, vcap = shade_reservoir_deferred(
+                    res, p, n, wo, mat, live=alive)
+                shadow_rays.append((origin, vdir, vcap))
         shadow_rgb.append(tuple(
             torch.where(alive, throughput[i] * nee[i], 0.0)
             for i in range(3)))
@@ -481,8 +526,14 @@ def render_frame(cfg, tables: TraceTables, tp: TraceParams, mats,
         if bounce == rs_cfg.total_bounce_limit - 1:
             alive = torch.zeros_like(alive)
             break
-        u1, u2, u3 = rs.next3()
-        samp = B.sample(mat, n, wo, u1, u2, u3)
+        if fused:
+            # continuation sample computed by the fused kernel
+            samp = B.BsdfSample(wi=out.wi, weight=out.weight, pdf=None,
+                                is_delta=out.is_delta != 0,
+                                is_transmission=out.is_transmission != 0)
+        else:
+            u1, u2, u3 = rs.next3()
+            samp = B.sample(mat, n, wo, u1, u2, u3)
         is_diffuse_lobe = ~samp.is_delta & ((mat.roughness > 0.35)
                                             | samp.is_transmission)
         diffuse_count = diffuse_count + (alive & is_diffuse_lobe).to(
@@ -520,8 +571,11 @@ def render_frame(cfg, tables: TraceTables, tp: TraceParams, mats,
         o = _c3(m.where3(trans_voxel, o_exit, o_surf))
         d = _c3(wi)
         prev_delta = samp.is_delta
-        _, prev_cos_pdf = B.eval_lum(mat, n, wo, wi)
-        prev_cos_pdf = torch.where(samp.is_delta, 0.0, prev_cos_pdf)
+        if fused:
+            prev_cos_pdf = out.prev_cos_pdf   # the kernel zeroed delta lobes
+        else:
+            _, prev_cos_pdf = B.eval_lum(mat, n, wo, wi)
+            prev_cos_pdf = torch.where(samp.is_delta, 0.0, prev_cos_pdf)
 
         if half_gi and bounce == 0:
             th0_full = tuple(throughput)
@@ -535,9 +589,9 @@ def render_frame(cfg, tables: TraceTables, tp: TraceParams, mats,
             min_roughness = _ds(min_roughness)
             prev_delta = _ds(prev_delta)
             prev_cos_pdf = _ds(prev_cos_pdf)
-            bn_h = None if bn_full is None \
+            bn_cur = None if bn_full is None \
                 else rng.bn_packed(H // 2, W // 2, 0, step=2, device=dev)
-            rs = rng.RandState(_ds(px), _ds(py), frame_u, 0, bn=bn_h)
+            rs = rng.RandState(_ds(px), _ds(py), frame_u, 0, bn=bn_cur)
             L_gi = [torch.zeros_like(one_h) for _ in range(3)]
             Lcur = L_gi
 

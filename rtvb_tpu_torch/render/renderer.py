@@ -1,12 +1,13 @@
 """Engine: owns world + assets + camera and runs the real-time frame
-(port of rtvb_tpu/render/renderer.py, first slice).
+(port of rtvb_tpu/render/renderer.py).
 
 The frame is the JAX package's `_build_run`: path trace → denoise → post →
 u8, with the three feedback states (ReSTIR reservoirs, denoiser history,
 adapted exposure) held as tensors on the engine's device and rebound every
-frame.  This slice runs the configuration `slice_settings()` gives:
-native resolution (render_scale 1.0, no EASU) and the in-line shading
-composition (fused_shading False); every other shipped default stays.
+frame.  `Engine()` runs the shipped `Settings()`: fused shading (the K4
+kernel) at native resolution.  `slice_settings()` is the same with the
+in-line shading composition (fused_shading False).  Only the native rung
+exists so far: render_scale below 1 (EASU, K7) raises.
 """
 from __future__ import annotations
 
@@ -40,8 +41,8 @@ STAGES = ("rtvb.pathtrace", "rtvb.denoise", "rtvb.post")
 
 
 def slice_settings(width: int = 1920, height: int = 1080) -> Settings:
-    """The shipped defaults with the two settings this slice fixes:
-    render_scale 1.0 and fused_shading False."""
+    """The shipped defaults at render_scale 1.0 with the in-line shading
+    composition (fused_shading False) in place of the fused kernel."""
     return Settings().replace(rendering={
         "render_width": width, "render_height": height,
         "render_scale": 1.0, "fused_shading": False})
@@ -68,12 +69,8 @@ class Engine:
         # f32 products and convolutions stay full precision on the card
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        self.settings = settings or slice_settings()
+        self.settings = settings or Settings()
         rs = self.settings.rendering
-        if rs.fused_shading:
-            raise NotImplementedError(
-                "fused_shading=True needs the fused shade kernel (K4), "
-                "still to port (ROADMAP)")
         self.scene = scene or SceneConfig()
         self.out_width = width or rs.render_width
         self.out_height = height or rs.render_height

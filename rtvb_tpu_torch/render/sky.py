@@ -193,6 +193,84 @@ def sun_radiance_cone(u1, sky: SkyState):
             torch.clamp(b, min=0.0))
 
 
+# ---------------------------------------------------------------------------
+# Packed per-frame scalars of the fused shading kernel (render/ris_kernel.py):
+# everything that does not depend on the pixel's direction, as one flat f32
+# vector — sun direction and cone, the sun polynomial, the fitted basis.
+# ---------------------------------------------------------------------------
+
+SF_SUN_X, SF_SUN_Y, SF_SUN_Z = 0, 1, 2
+SF_COS_SUN = 3          # cos of sun angular radius
+SF_PDF_SUN = 4          # solid-angle pdf of the sun cone sample
+SF_ANY_LIGHTS = 5
+SF_INV_SIN2R = 6        # 1 / sin²(sun radius) — limb sample-cosine constant
+SF_SUN_POLY = 8         # 18 slots: (6 powers) × RGB, row-major i*3+c
+SF_BASIS_P = 26         # 4 slots: B̄, Ē₁, Ē₂, H̄
+SF_BASIS_M = 30         # 36 slots: (12 basis fns) × RGB, row-major k*3+c
+SF_LEN = 72
+
+
+def sky_scalar_pack(sky: SkyState, any_lights) -> torch.Tensor:
+    """(SF_LEN,) f32 vector of per-frame sky/sun scalars, on the sky
+    state's device (layout above)."""
+    cos_r = sky.cos_sun_radius
+    pdf_sun = 1.0 / torch.clamp(2.0 * math.pi * (1.0 - cos_r), min=1e-9)
+    inv_sin2r = 1.0 / torch.clamp(1.0 - cos_r * cos_r, min=1e-12)
+    dev = cos_r.device
+    head = torch.stack([*sky.sun_dir, cos_r, pdf_sun,
+                        torch.full((), float(bool(any_lights)), device=dev),
+                        inv_sin2r, torch.zeros((), device=dev)])
+    return torch.cat([head.to(torch.float32), sky.sun_poly.reshape(-1),
+                      sky.basis_p.reshape(-1), sky.basis_m.reshape(-1),
+                      torch.zeros(SF_LEN - 66, device=dev)])
+
+
+def sky_radiance_scalars(d, sf, rcp=None, rsqrt=None):
+    """sky_radiance over the packed scalar vector (the fused kernel's
+    form: polynomial acos, basis constants read from `sf`)."""
+    sun = (sf[SF_SUN_X], sf[SF_SUN_Y], sf[SF_SUN_Z])
+    cos_t = torch.clamp(d[1], 0.0, 1.0)
+    cos_g = torch.clamp(m.dot(d, sun), -1.0, 1.0)
+    gamma = _acos_poly(cos_g)
+    f = ss._features(cos_t, cos_g, gamma, sf[SF_BASIS_P], sf[SF_BASIS_P + 1],
+                     sf[SF_BASIS_P + 2], sf[SF_BASIS_P + 3],
+                     xp=torch, rcp=rcp, rsqrt=rsqrt, sqrt=m.sqrt)
+    r = g = b = None
+    for k in range(N_BASIS):
+        mk = SF_BASIS_M + k * 3
+        r = f[k] * sf[mk] if r is None else r + f[k] * sf[mk]
+        g = f[k] * sf[mk + 1] if g is None else g + f[k] * sf[mk + 1]
+        b = f[k] * sf[mk + 2] if b is None else b + f[k] * sf[mk + 2]
+    hz = torch.where(d[1] < 0.0, 0.35, 1.0)
+    return (torch.clamp(r, min=0.0) * hz, torch.clamp(g, min=0.0) * hz,
+            torch.clamp(b, min=0.0) * hz)
+
+
+def sun_radiance_scalars_cone(sin_t, sf):
+    """Sun radiance of the fused kernel's cone candidate from the sampled
+    sine of the cone angle: limb sample cosine √(1 − sin²γ·SF_INV_SIN2R),
+    then the degree-5 RGB Horner over the packed polynomial."""
+    s = m.sqrt(torch.clamp(1.0 - sin_t * sin_t * sf[SF_INV_SIN2R], 0.0, 1.0))
+    r = sf[SF_SUN_POLY + 15]
+    g = sf[SF_SUN_POLY + 16]
+    b = sf[SF_SUN_POLY + 17]
+    for i in (4, 3, 2, 1, 0):
+        r = r * s + sf[SF_SUN_POLY + i * 3]
+        g = g * s + sf[SF_SUN_POLY + i * 3 + 1]
+        b = b * s + sf[SF_SUN_POLY + i * 3 + 2]
+    return (torch.clamp(r, min=0.0), torch.clamp(g, min=0.0),
+            torch.clamp(b, min=0.0))
+
+
+def _acos_poly(x):
+    """Branchless polynomial acos (Abramowitz–Stegun 4.4.45, |err| ≤ 7e-5
+    rad); gamma only feeds exp(D·γ)."""
+    ax = torch.abs(x)
+    r = m.sqrt(torch.clamp(1.0 - ax, min=0.0)) * (
+        1.5707963 + ax * (-0.2121144 + ax * (0.0742610 - 0.0187293 * ax)))
+    return torch.where(x >= 0.0, r, math.pi - r)
+
+
 def equal_area_dirs(w: int, h: int, device="cpu"):
     u = (torch.arange(w, dtype=torch.float32, device=device)[None, :] + 0.5) / w
     v = (torch.arange(h, dtype=torch.float32, device=device)[:, None] + 0.5) / h

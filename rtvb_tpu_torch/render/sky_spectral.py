@@ -104,20 +104,24 @@ def sun_rgb_poly(sun_y: float, sun_diameter_deg: float = 0.51) -> np.ndarray:
 # RGB basis projection (fit in numpy at sun-change time; eval in torch per pixel)
 # ---------------------------------------------------------------------------
 
-def _features(cos_t, cos_g, gamma, B, E1, E2, Hm, xp=np, rcp=None, rsqrt=None):
+def _features(cos_t, cos_g, gamma, B, E1, E2, Hm, xp=np, rcp=None, rsqrt=None,
+              sqrt=None):
     """The 12 shared basis functions of (cosθ, γ).  xp switches numpy (fit)
-    and torch (per-pixel eval) — one definition for both."""
+    and torch (per-pixel eval) — one definition for both; rcp / rsqrt /
+    sqrt let a caller pin how those round."""
     if rcp is None:
         rcp = lambda x: 1.0 / x
+    if sqrt is None:
+        sqrt = xp.sqrt
     if rsqrt is None:
-        rsqrt = lambda x: rcp(xp.sqrt(x))
+        rsqrt = lambda x: rcp(sqrt(x))
     eu = xp.exp(B * rcp(cos_t + 0.01))
     e1 = xp.exp(E1 * gamma)
     e2 = xp.exp(E2 * gamma)
     g2 = cos_g * cos_g
     md = 1.0 + Hm * Hm - 2.0 * Hm * cos_g
     mie = (1.0 + g2) * rcp(md) * rsqrt(md)     # (1+cos²γ) · md^{-3/2}
-    z = xp.sqrt(cos_t)
+    z = sqrt(cos_t)
     return [xp.ones_like(cos_t), eu, g2, z, e1, e2, mie,
             eu * g2, eu * z, eu * e1, eu * e2, eu * mie]
 

@@ -4,7 +4,10 @@ GPU machine with:  python -m pytest tests/test_torch_gpu.py -m gpu
 
 Small shapes with ragged edges; K1, K2, K3 and K5 bit-exact (the library
 is built with --fmad=false, so every product rounds like the plain
-version's), K6 to 1e-5 relative."""
+version's), K6 to 1e-5 relative; K4 on the four cases of chip_smoke.py
+(the frame's own bounce inputs, synthetic lights, blue noise off) to its
+bar: the int outputs equal on ≥ 99.9% of pixels, the floats within 1e-5
+relative there."""
 import numpy as np
 import pytest
 import torch
@@ -139,3 +142,40 @@ def test_wrapper_raises_on_wrong_input(cuda):
     with pytest.raises(ValueError):
         warp_kernel.warp_nearest(hist, torch.zeros(16, 32, device=cuda)[:, ::2],
                                  torch.zeros(16, 16, device=cuda))
+
+
+@pytest.fixture(scope="module")
+def shade_cases(cuda):
+    import chip_smoke
+    from rtvb_tpu_torch.core.config import Settings
+    from rtvb_tpu_torch.render.renderer import Engine
+    eng = Engine(settings=Settings().replace(rendering={
+        "render_width": 200, "render_height": 122}), device=cuda)
+    eng.render_realtime_device()      # reservoirs with content
+    return chip_smoke, chip_smoke.shade_cases(eng)
+
+
+@pytest.mark.parametrize("case", ["a", "b", "c", "d"])
+def test_shade_kernel_matches_plain(shade_cases, case):
+    from rtvb_tpu_torch.render import ris_kernel as RK
+    smoke, cases = shade_cases
+    name = next(n for n in cases if n.startswith(f"({case})"))
+    args, kw = cases[name]
+    a = RK.fused_shade_cuda(*args, **kw)
+    b = RK.fused_shade_plain(*args, **kw)
+    torch.cuda.synchronize()
+    d = smoke.shade_diff(a, b)
+    print(name, d)
+    smoke.shade_check(d)
+
+
+def test_shade_wrapper_counts_and_raises(shade_cases):
+    from rtvb_tpu_torch.render import ris_kernel as RK
+    _, cases = shade_cases
+    args, kw = next(iter(cases.values()))
+    before = RK.SHADE.launches
+    RK.fused_shade(*args, **kw)
+    assert RK.SHADE.launches == before + 1
+    with pytest.raises(TypeError):
+        RK.fused_shade(*args[:3], args[3].double(), *args[4:], **kw)
+    assert RK.SHADE.launches == before + 1

@@ -1,8 +1,8 @@
 """The port never imports JAX nor the JAX package `rtvb_tpu`: in a fresh
 interpreter, import every rtvb_tpu_torch module, build a 32×32
-Engine(device="cpu") and render one frame (the frame catches lazy imports,
-such as a mesh loader reached only while building the decoration soup),
-then check sys.modules.  A scan of the sources catches import lines on
+Engine(device="cpu") with the shipped settings and render one frame (the
+frame catches lazy imports, such as a mesh loader reached only while
+building the decoration soup), then check sys.modules.  A scan of the sources catches import lines on
 paths the frame does not reach."""
 import os
 import pkgutil
@@ -23,8 +23,9 @@ names = [m.name for m in pkgutil.walk_packages(rtvb_tpu_torch.__path__,
                                                "rtvb_tpu_torch.")]
 for n in names:
     importlib.import_module(n)
-from rtvb_tpu_torch.render.renderer import Engine, slice_settings
-eng = Engine(settings=slice_settings(32, 32), device="cpu")
+from rtvb_tpu_torch.render.renderer import Engine
+eng = Engine(width=32, height=32, device="cpu")     # the shipped Settings()
+assert eng.settings.rendering.fused_shading
 out = eng.render_realtime()
 assert out.shape == (32, 32, 3), out.shape
 leaked = sorted(m for m in sys.modules
