@@ -10,7 +10,8 @@
    one exists); K4 (fused shade) on the frame's own bounce-0 and bounce-1
    inputs: (a) as the frame calls it, (b) with a synthetic 200-slot light
    table, 8 candidates, 3 taps and entity MIS, (c) at 960×540 with 2
-   candidates and no taps, (d) with blue noise off;
+   candidates and no taps, (d) with blue noise off, (e) with 5 candidates
+   and 2 taps (the kernel's generic instance);
 3. drives the main path — Engine(device="cuda") with the shipped
    Settings() at 1920×1080 (fused shading, native resolution) — through
    warm-up and timed frames, every kernel's launch counter reset just
@@ -432,7 +433,9 @@ def shade_cases(eng, seed: int = 5):
     (a) bounce 0 as the frame calls it; (b) bounce 0 with a synthetic
     200-slot light table, 8 candidates, 3 taps, entity MIS; (c) bounce 1
     (half resolution) with the synthetic table, 2 candidates, no taps;
-    (d) bounce 0 with blue noise off."""
+    (d) bounce 0 with blue noise off; (e) bounce 0 with the synthetic
+    table, 5 candidates and 2 taps, which runs the kernel's generic
+    instance (runtime counts)."""
     from rtvb_tpu_torch.render import ris_kernel as RK
     from rtvb_tpu_torch.render import sky as sky_mod
     calls = capture_shade_calls(eng)
@@ -460,6 +463,10 @@ def shade_cases(eng, seed: int = 5):
         f"(d) bounce 0 {w0}x{h0}, 3 taps, white noise": (
             (a0[0]._replace(blue_noise=False),) + tuple(a0[1:]),
             dict(kw0, bn=None)),
+        # a pair with no compile-time instance: the generic one
+        f"(e) 200 lights {w0}x{h0}, 5 cand, 2 taps (generic)": (
+            with_lights(a0, n_local=5, n_taps=2),
+            dict(kw0, taps=kw0["taps"][:2])),
     }
 
 
