@@ -11,14 +11,17 @@
    inputs: (a) as the frame calls it, (b) with a synthetic 200-slot light
    table, 8 candidates, 3 taps and entity MIS, (c) at 960×540 with 2
    candidates and no taps, (d) with blue noise off, (e) with 5 candidates
-   and 2 taps (the kernel's generic instance);
+   and 2 taps (the kernel's generic instance), (f) bounce 1 as the frame
+   calls it (the instance that also runs bounce 2);
 3. drives the main path — Engine(device="cuda") with the shipped
    Settings() at 1920×1080 (fused shading, native resolution) — through
    warm-up and timed frames, every kernel's launch counter reset just
    before and read just after; K4 must launch 3 times a frame;
 4. checks the frame: u8 shape, finite, non-constant, primary hit fraction;
-5. times the in-line configuration (slice_settings: fused shading off)
-   in the same process, for the record;
+5. drives the in-line configuration (slice_settings: fused shading off),
+   its launch counters reset just before its warm-up frames and read just
+   after (K1-K3, K5, K6 launched, K4 not), and times it in turns with the
+   main path, for the record;
 6. profiles three more frames (torch.profiler): host ms per engine stage,
    the device's busy share, device ops per frame, the top device kernels;
 7. renders two frames at 320×180 with the kernels on the card and with
@@ -429,13 +432,14 @@ def capture_shade_calls(eng):
 
 
 def shade_cases(eng, seed: int = 5):
-    """The five K4 cases on the frame's own inputs: {name: (args, kw)}.
+    """The six K4 cases on the frame's own inputs: {name: (args, kw)}.
     (a) bounce 0 as the frame calls it; (b) bounce 0 with a synthetic
     200-slot light table, 8 candidates, 3 taps, entity MIS; (c) bounce 1
     (half resolution) with the synthetic table, 2 candidates, no taps;
     (d) bounce 0 with blue noise off; (e) bounce 0 with the synthetic
     table, 5 candidates and 2 taps, which runs the kernel's generic
-    instance (runtime counts)."""
+    instance (runtime counts); (f) bounce 1 as the frame calls it, the
+    instance that bounces 1 and 2 run."""
     from rtvb_tpu_torch.render import ris_kernel as RK
     from rtvb_tpu_torch.render import sky as sky_mod
     calls = capture_shade_calls(eng)
@@ -467,6 +471,7 @@ def shade_cases(eng, seed: int = 5):
         f"(e) 200 lights {w0}x{h0}, 5 cand, 2 taps (generic)": (
             with_lights(a0, n_local=5, n_taps=2),
             dict(kw0, taps=kw0["taps"][:2])),
+        f"(f) bounce 1 {w1}x{h1}, 0 taps, as the frame calls it": (a1, kw1),
     }
 
 
@@ -819,8 +824,19 @@ def main() -> int:
     # host's speed drifts within a call, so the two engines render in turns
     # (fused, in-line, in-line, fused, ...) and each keeps its own median
     inline = Engine(settings=slice_settings(fw, fh), device="cuda")
+    K.reset_launch_counts()
     for _ in range(n_warm):
         inline.render_realtime_device()
+    sync()
+    inline_counts = K.launch_counts()
+    log(f"launch counts over {n_warm} in-line frames: {inline_counts}")
+    for name in KERNELS:
+        if name == "shade":
+            check(inline_counts.get(name, 0) == 0,
+                  "the in-line frame launched the fused shade kernel")
+        else:
+            check(inline_counts.get(name, 0) > 0,
+                  f"kernel {name} never launched in the in-line frame")
     ab = interleaved({"fused": eng, "inline": inline}, n_pairs=8)
     inline_ms = statistics.median(ab["inline"])
     for label, ts in ab.items():
@@ -847,6 +863,16 @@ def main() -> int:
               == st.rendering.fused_shading,
               f"{label}: K4 launches do not match fused_shading")
 
+    # K4's share of a frame: bounce 0 (case a) and bounces 1-2 (case f,
+    # the same instance and shape for both)
+    sa = next(c for c in rep.cases if c["case"].startswith("(a)"))
+    sf = next(c for c in rep.cases if c["case"].startswith("(f)"))
+    shade_frame = {k: sa[k] + 2 * sf[k]
+                   for k in ("ms", "plain_ms", "bound_ms")}
+    log(f"K4 a frame, case (a) + 2 x case (f): {shade_frame['ms']:.4f} ms "
+        f"against a bound of {shade_frame['bound_ms']:.4f} ms "
+        f"({shade_frame['ms'] / shade_frame['bound_ms']:.2f}x); plain "
+        f"{shade_frame['plain_ms']:.4f} ms")
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         cs = [c for c in rep.cases if c["kernel"] == name]
@@ -862,7 +888,8 @@ def main() -> int:
         json.dump(dict(card=card, frame=FRAME, frame_ms=frame_ms,
                        frame_ms_all=times, enqueue_ms=enq_ms,
                        in_turns_ms=ab, inline_frame_ms=inline_ms,
-                       launches=counts, cases=rep.cases,
+                       launches=counts, launches_inline=inline_counts,
+                       shade_per_frame=shade_frame, cases=rep.cases,
                        shade_diffs=shade_diffs, whole_frame=whole,
                        profile=prof, profile_inline=prof_inline,
                        kernels=kernels), f, indent=1)

@@ -1,14 +1,6 @@
 """PNG reading for the authored textures (the read half of
-rtvb_tpu/utils/image.py, which the port keeps its own copy of).
-
-`read_png` uses PIL where it is installed, as the JAX package does;
-without it, a numpy + zlib decoder reads the 8-bit, non-interlaced
-grey / RGB / RGBA files the repository ships.
-"""
+rtvb_tpu/utils/image.py, which the port keeps its own copy of)."""
 from __future__ import annotations
-
-import struct
-import zlib
 
 import numpy as np
 
@@ -17,69 +9,9 @@ try:
 except ImportError:  # pragma: no cover
     _PIL = None
 
-_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}     # PNG colour type → samples / pixel
-
 
 def read_png(path: str) -> np.ndarray:
     """Returns (H, W, 3) uint8."""
     if _PIL is not None:
         return np.asarray(_PIL.open(path).convert("RGB"))
-    return decode_png(path)
-
-
-def decode_png(path: str) -> np.ndarray:
-    """(H, W, 3) uint8 from an 8-bit non-interlaced PNG, numpy + zlib."""
-    with open(path, "rb") as f:
-        data = f.read()
-    if data[:8] != _SIGNATURE:
-        raise ValueError(f"{path}: not a PNG file")
-    pos, idat, hdr = 8, [], None
-    while pos < len(data):
-        (length,) = struct.unpack(">I", data[pos:pos + 4])
-        tag = data[pos + 4:pos + 8]
-        body = data[pos + 8:pos + 8 + length]
-        pos += 12 + length
-        if tag == b"IHDR":
-            hdr = struct.unpack(">IIBBBBB", body)
-        elif tag == b"IDAT":
-            idat.append(body)
-        elif tag == b"IEND":
-            break
-    w, h, depth, ctype, _, _, interlace = hdr
-    if depth != 8 or interlace or ctype not in _CHANNELS:
-        raise ValueError(f"{path}: only 8-bit non-interlaced grey/RGB(A) "
-                         f"PNGs are supported without PIL")
-    bpp = _CHANNELS[ctype]
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    raw = raw.reshape(h, 1 + w * bpp)
-    out = np.zeros((h, w * bpp), np.int32)
-    prev = np.zeros(w * bpp, np.int32)
-    for y in range(h):
-        ftype, line = raw[y, 0], raw[y, 1:].astype(np.int32)
-        if ftype == 0:
-            cur = line
-        elif ftype == 1:       # Sub: running sum per channel, mod 256
-            cur = np.cumsum(line.reshape(w, bpp), axis=0).reshape(-1) & 0xFF
-        elif ftype == 2:       # Up
-            cur = (line + prev) & 0xFF
-        else:                  # Average / Paeth: left-dependent, per pixel
-            cur = line.copy()
-            for x in range(w * bpp):
-                a = cur[x - bpp] if x >= bpp else 0
-                b = prev[x]
-                if ftype == 3:
-                    pred = (a + b) >> 1
-                else:
-                    c = prev[x - bpp] if x >= bpp else 0
-                    p = a + b - c
-                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-                    pred = a if pa <= pb and pa <= pc else (
-                        b if pb <= pc else c)
-                cur[x] = (cur[x] + pred) & 0xFF
-        out[y] = cur
-        prev = cur
-    img = out.astype(np.uint8).reshape(h, w, bpp)
-    if bpp <= 2:
-        return np.repeat(img[..., :1], 3, axis=-1)
-    return np.ascontiguousarray(img[..., :3])
+    raise RuntimeError("PNG reading requires PIL")

@@ -9,8 +9,11 @@ outputs within rtol 2e-5 / atol 2e-5 on the pixels where they are (the
 JAX package's own Pallas-vs-XLA bar, tests/test_ris_kernel.py).  The last
 bits differ because XLA's rsqrt, exp, sin and cos round differently from
 torch's on the CPU; an output that evaluates the GGX lobe at a direction
-on its narrow peak amplifies such a bit (tests/test_torch_ops.py), so
-there — on the pixels `_ggx_peak` marks — the bar is 2e-2 relative."""
+on its narrow peak amplifies such a bit by ≈ 4·2⁻²³/den relative (den =
+cos²h·(α²−1)+1, the rule of tests/test_torch_ops.py), so there — on the
+pixels with den < 0.05, 14–19% of them for the continuation's outputs
+and 2.5–3.5% for the winner's — the relative bar is 2e-5 + 16·2⁻²³/den.
+The largest error seen on those pixels is 6·2⁻²³/den (2e-3 relative)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -128,43 +131,56 @@ def _inputs(seed, n_taps, k):
 # (weight, prev_cos_pdf) and at the winner's direction (phat, W, nee)
 _AT_WI = (20, 21, 22, 25)
 _AT_WINNER = (11, 13, 14, 15, 16)
+PEAK_DEN = 0.05         # den below this: a GGX peak
+PEAK_ULPS = 16          # relative bar there, in units of 2⁻²³/den
 
 
-def _ggx_peak(x, wi):
-    """GGX's D = α²/(π·den²), den = cos²h·(α²−1)+1, is small at a lobe's
-    peak; there one last-bit difference of the direction moves D by
-    ≈ 4·2⁻²³/den relative (the rule of tests/test_torch_ops.py)."""
+def _ggx_den(x, wi):
+    """GGX's D = α²/(π·den²), den = cos²h·(α²−1)+1, for the half vector
+    of wo and wi; den is small at a lobe's peak."""
     n, wo = np.stack(x["n"]), np.stack(x["wo"])
     h = wo + np.stack(wi)
     h /= np.maximum(np.linalg.norm(h, axis=0, keepdims=True), 1e-12)
     cos_h = np.maximum((n * h).sum(0), 0)
     alpha2 = np.maximum(x["rough"], 0.02) ** 4
-    return cos_h ** 2 * (alpha2 - 1) + 1 < 0.05
+    return cos_h ** 2 * (alpha2 - 1) + 1
 
 
 def _compare(jo, po, x):
     """Ints equal on ≥ 99% of pixels; floats within 2e-5 there, off the
-    GGX peaks (within 2e-2 on them)."""
+    GGX peaks, and within 2e-5 + PEAK_ULPS·2⁻²³/den relative on them.
+    Returns the int agreement and the largest share of its bar that an
+    error on a peak used."""
     js = [np.asarray(a) for a in JRK._flatten_out(jo)]
     ps = [a.numpy() for a in PRK.flatten_out(po)]
     agree = np.ones((H, W), bool)
     for k in PRK.OUT_I32:
         agree &= js[k].astype(np.int64) == ps[k].astype(np.int64)
     assert agree.mean() >= 0.99, agree.mean()
-    peak_wi = _ggx_peak(x, js[17:20])
-    peak_win = _ggx_peak(x, js[4:7])
-    assert peak_wi.mean() < 0.3 and peak_win.mean() < 0.1
+    den_wi, den_win = _ggx_den(x, js[17:20]), _ggx_den(x, js[4:7])
+    peak_share = ((den_wi < PEAK_DEN).mean(), (den_win < PEAK_DEN).mean())
+    assert peak_share[0] < 0.25 and peak_share[1] < 0.05, peak_share
+    used = 0.0
     for k, (a, b) in enumerate(zip(js, ps)):
         if k in PRK.OUT_I32:
             continue
-        peak = peak_wi if k in _AT_WI else (
-            peak_win if k in _AT_WINNER else np.zeros_like(agree))
-        ok = agree & ~peak
-        np.testing.assert_allclose(b[ok], a[ok], rtol=2e-5, atol=2e-5,
-                                   err_msg=f"output #{k}")
-        np.testing.assert_allclose(b[agree], a[agree], rtol=2e-2, atol=1e-3,
-                                   err_msg=f"output #{k} on GGX peaks")
-    return agree.mean()
+        den = den_wi if k in _AT_WI else (
+            den_win if k in _AT_WINNER else np.ones((H, W)))
+        peak = den < PEAK_DEN
+        rtol = np.where(peak, 2e-5 + PEAK_ULPS * 2.0 ** -23
+                        / np.maximum(den, 1e-7), 2e-5)
+        a, b = a.astype(np.float64), b.astype(np.float64)
+        same = (a == b) | (np.isnan(a) & np.isnan(b))
+        lim = 2e-5 + rtol * np.abs(a)
+        err = np.where(same, 0.0, np.abs(b - a))
+        bad = agree & ~(err <= lim)
+        assert not bad.any(), (
+            f"output #{k}: {int(bad.sum())} values over the bar "
+            f"({int((bad & peak).sum())} on GGX peaks), worst error "
+            f"{float(err[bad].max())}")
+        if (agree & peak).any():
+            used = max(used, float((err / lim)[agree & peak].max()))
+    return agree.mean(), peak_share, used
 
 
 @pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
@@ -212,8 +228,10 @@ def test_fused_shade_plain_matches_jax(sky, case):
         depth=T(x["depth"]) if n_taps else None,
         taps=[(T(tp.view(np.int32)).view(torch.float32), T(tv))
               for tp, tv in x["taps"]], bn=bn_p)
-    frac = _compare(jo, po, x)
-    print(f"{name}: int outputs agree on {frac:.4f} of pixels")
+    frac, peak_share, used = _compare(jo, po, x)
+    print(f"{name}: int outputs agree on {frac:.4f} of pixels; GGX peaks "
+          f"{peak_share[0]:.4f} (continuation) / {peak_share[1]:.4f} "
+          f"(winner) of pixels, largest error there {used:.3f} of its bar")
     # the estimator did something: some winners and some taps taken
     kinds = po.kind.numpy()
     assert (kinds != 0).mean() > 0.5

@@ -4,9 +4,9 @@ GPU machine with:  python -m pytest tests/test_torch_gpu.py -m gpu
 
 Small shapes with ragged edges; K1, K2, K3 and K5 bit-exact (the library
 is built with --fmad=false, so every product rounds like the plain
-version's), K6 to 1e-5 relative; K4 on the five cases of chip_smoke.py
+version's), K6 to 1e-5 relative; K4 on the six cases of chip_smoke.py
 (the frame's own bounce inputs, synthetic lights, blue noise off, the
-generic instance) to its
+generic instance, bounce 1 as the frame calls it) to its
 bar: the int outputs equal on ≥ 99.9% of pixels, the floats within 1e-5
 relative there."""
 import numpy as np
@@ -156,7 +156,7 @@ def shade_cases(cuda):
     return chip_smoke, chip_smoke.shade_cases(eng)
 
 
-@pytest.mark.parametrize("case", ["a", "b", "c", "d", "e"])
+@pytest.mark.parametrize("case", ["a", "b", "c", "d", "e", "f"])
 def test_shade_kernel_matches_plain(shade_cases, case):
     from rtvb_tpu_torch.render import ris_kernel as RK
     smoke, cases = shade_cases
