@@ -26,7 +26,15 @@
    the device's busy share, device ops per frame, the top device kernels;
 7. renders two frames at 320×180 with the kernels on the card and with
    the plain versions on the CPU, for both configurations, and compares
-   them like the CPU slice tests.
+   them like the CPU slice tests;
+8. the dynamic-resolution rungs (3/4, 2/3, 1/2 of the 1920×1080 output):
+   K7 (EASU) against its plain version, bit for bit, on the tone-mapped
+   frames the engine upscales at each rung and at a mixed per-axis ratio
+   (214×120 → 320×180); each rung's frames with their own launch counts
+   (K7 once a frame, K4 three times, K1-K3, K5, K6 launched); the rungs
+   and the native frame in turns, and a profile at the 1/2 rung; a walk
+   of the DynamicResolution controller fed with measured frame times; two
+   frames at the 2/3 rung of 384×216 on the card against the CPU.
 
 Exits non-zero, without the final line, on any failure or without a card.
 The last line is {"ok": true, "device": {...}}; the line before it lists
@@ -36,6 +44,7 @@ and nvcc's register / spill report to chiprun_out/nvcc_ptxas.log.
 from __future__ import annotations
 
 import bisect
+import copy
 import json
 import os
 import statistics
@@ -65,7 +74,13 @@ KERNELS = {
                "rtvb_tpu/ops/denoise/atrous_kernel.py:130"),
     "shade": ("rtvb_tpu_torch/csrc/shade_kernel.cu",
               "rtvb_tpu/render/ris_kernel.py:484"),
+    "easu": ("rtvb_tpu_torch/csrc/easu_kernel.cu",
+             "rtvb_tpu/ops/easu_kernel.py:249"),
 }
+# kernels that run only below render_scale 1, on the rung frames' path
+RUNG_ONLY = ("easu",)
+RUNGS = {"1/2": 0.5, "2/3": 2.0 / 3.0, "3/4": 0.75}
+RUNG_VS_CPU = (384, 216)      # card-vs-CPU at the 2/3 rung: 256×144 inside
 
 # the least time the card could take for a kernel's work: its bytes (each
 # input read once, each output written once) over the memory rate, or its
@@ -760,6 +775,142 @@ def whole_frame_vs_cpu(settings):
     return results
 
 
+# ---------------------------------------------------------------------------
+# K7 and the dynamic-resolution rungs
+# ---------------------------------------------------------------------------
+
+def capture_easu_input(eng):
+    """The (img, out_h, out_w) that one frame of `eng` hands to the EASU
+    wrapper (the frame advances the engine like any frame)."""
+    from rtvb_tpu_torch.ops import easu_kernel as EK
+    seen = []
+    orig = EK.easu
+
+    def record(img, out_h, out_w):
+        seen.append((img, out_h, out_w))
+        return orig(img, out_h, out_w)
+    EK.easu = record
+    try:
+        eng.render_realtime_device()
+    finally:
+        EK.easu = orig
+    check(len(seen) == 1, f"{len(seen)} EASU calls in a frame at scale "
+          f"{eng.render_scale}")
+    return seen[0]
+
+
+def easu_work(img, out_h: int, out_w: int):
+    """(bytes, ops) of one K7 launch: the (H, W, 3) f32 input read once,
+    the (out_h, out_w, 3) f32 output written once; ops counted from the
+    source: ≈ 25 flops per input texel (luma, the field) and ≈ 390 per
+    output pixel (the field blend, 12 taps × ≈ 26, the division and the
+    quad clamp)."""
+    H, W = img.shape[:2]
+    return 12 * (H * W + out_h * out_w), 25 * H * W + 390 * out_h * out_w
+
+
+def easu_kernel_cases(inputs: dict, rep: Report):
+    """K7 against easu_plain, bit for bit, on each captured input."""
+    import torch
+    from rtvb_tpu_torch.ops import easu_kernel as EK
+
+    def cmp(a, b):
+        check(a.shape == b.shape, f"easu shapes {a.shape} {b.shape}")
+        bad = int((a.view(torch.int32) != b.view(torch.int32)).sum())
+        check(bad == 0, f"easu: {bad} values differ")
+        return 0.0, 0.0
+    for label, (img, oh, ow) in inputs.items():
+        h, w = img.shape[:2]
+        rep.case("easu", f"{label}: {w}x{h} -> {ow}x{oh}",
+                 lambda i=img, a=oh, b=ow: EK._easu_cuda(i, a, b),
+                 lambda i=img, a=oh, b=ow: EK.easu_plain(i, a, b), cmp,
+                 easu_work(img, oh, ow))
+
+
+def check_frame(out, shape, label):
+    import torch
+    u8 = out.cpu().numpy()
+    check(u8.shape == shape and u8.dtype == np.uint8,
+          f"{label}: frame shape {u8.shape} {u8.dtype}")
+    check(bool(torch.isfinite(out.float()).all()), f"{label}: not finite")
+    check(u8.std() > 1.0, f"{label}: frame is constant")
+
+
+def rung_frames(eng, K, n_warm: int, n_timed: int) -> dict:
+    """Each rung on `eng`: launch counts reset right before its warm-up
+    and timed frames and read right after."""
+    out = {}
+    n_frames = n_warm + n_timed
+    shape = (eng.out_height, eng.out_width, 3)
+    bounces = eng.settings.rendering.total_bounce_limit
+    for label, scale in RUNGS.items():
+        eng.set_render_scale(scale)
+        K.reset_launch_counts()
+        ms, times, frame, enq = frame_run(eng, n_warm, n_timed)
+        counts = K.launch_counts()
+        log(f"rung {label} ({eng.width}x{eng.height} -> {eng.out_width}x"
+            f"{eng.out_height}): median {ms:.3f} ms "
+            f"{[round(t, 3) for t in times]}; host enqueue median "
+            f"{enq:.3f} ms; launches {counts}")
+        check(counts["easu"] == n_frames,
+              f"rung {label}: easu launched {counts['easu']} times in "
+              f"{n_frames} frames")
+        check(counts["shade"] == bounces * n_frames,
+              f"rung {label}: shade launched {counts['shade']} times")
+        for name in KERNELS:
+            check(counts.get(name, 0) > 0,
+                  f"rung {label}: kernel {name} never launched")
+        check_frame(frame, shape, f"rung {label}")
+        out[label] = dict(scale=scale, internal=(eng.width, eng.height),
+                          frame_ms=ms, frame_ms_all=times, enqueue_ms=enq,
+                          launches=counts)
+    return out
+
+
+def dynres_walk(eng, K, n_frames: int = 30) -> dict:
+    """The DynamicResolution controller driving `eng`: each frame's
+    measured time is fed to it and the scale it returns applied."""
+    from rtvb_tpu_torch.apps.interactive import DynamicResolution
+    rs = eng.settings.rendering
+    check(rs.dynamic_resolution, "the shipped settings turn dynamic "
+          "resolution on")
+
+    def controller():
+        return DynamicResolution(target_fps=rs.target_fps,
+                                 min_scale=rs.min_render_scale,
+                                 start_scale=1.0)
+    dr = controller()
+    shape = (eng.out_height, eng.out_width, 3)
+    scales, times = [], []
+    K.reset_launch_counts()
+    for _ in range(n_frames):
+        eng.set_render_scale(dr.scale)
+        scales.append(dr.scale)
+        sync()
+        t0 = time.perf_counter()
+        out = eng.render_realtime_device()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+        check(tuple(out.shape) == shape, f"walk frame shape {out.shape}")
+        dr.update(times[-1])
+    counts = K.launch_counts()
+    below = sum(s < 1.0 for s in scales)
+    log(f"DynamicResolution walk, {n_frames} frames: scales "
+        f"{[round(s, 4) for s in scales]}; ms {[round(t, 1) for t in times]};"
+        f" easu launches {counts['easu']}, frames below scale 1: {below}")
+    check(counts["easu"] == below, f"walk: easu launched {counts['easu']} "
+          f"times in {below} frames below scale 1")
+    fresh = controller()
+    replay = []
+    for t in times:
+        replay.append(fresh.scale)
+        fresh.update(t)
+    check(replay == scales, "walk: the scales differ from a fresh "
+          "controller's on the recorded times")
+    return dict(scales=scales, frame_ms=times, launches=counts,
+                frames_below_1=below)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -767,6 +918,13 @@ def main() -> int:
         return 2
     from rtvb_tpu_torch import kernels as K
     os.makedirs(LOG_DIR, exist_ok=True)
+    t_start = time.perf_counter()
+    phase_s = {}
+
+    def phase(label):
+        """Seconds since the start at which `label` begins (logged)."""
+        phase_s[label] = time.perf_counter() - t_start
+        log(f"[{phase_s[label]:.1f} s] {label}")
     card = card_line()
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -792,12 +950,28 @@ def main() -> int:
     check(rs.fused_shading and rs.render_scale == 1.0,
           "the main path must run the shipped defaults")
 
+    phase("kernel cases")
     log("kernels against their plain versions (CUDA events, median of 10):")
     rep = Report()
     kernel_cases(eng, rep)
     shade_diffs = shade_kernel_cases(eng, rep)
+    # K7 on the tone-mapped frame each rung hands to EASU, and on a mixed
+    # per-axis ratio: the 2/3 rung of 320×180 renders 214×120
+    easu_inputs = {}
+    for label, scale in RUNGS.items():
+        eng.set_render_scale(scale)
+        easu_inputs[f"{label} rung"] = capture_easu_input(eng)
+    eng.set_render_scale(1.0)
+    small = Engine(settings=Settings().replace(rendering={
+        "render_width": VS_CPU[0], "render_height": VS_CPU[1],
+        "render_scale": RUNGS["2/3"]}), device="cuda")
+    easu_inputs["mixed ratio"] = capture_easu_input(small)
+    del small
+    easu_kernel_cases(easu_inputs, rep)
+    del easu_inputs
 
     # the main path: counts are reset right before and read right after
+    phase("main path")
     n_warm, n_timed = 2, 8
     K.reset_launch_counts()
     frame_ms, times, out, enq_ms = frame_run(eng, n_warm, n_timed)
@@ -808,18 +982,20 @@ def main() -> int:
         f"{enq_ms:.3f} ms")
     log(f"launch counts over the main-path run: {counts}")
     for name in KERNELS:
-        check(counts.get(name, 0) > 0, f"kernel {name} never launched")
+        if name in RUNG_ONLY:
+            check(counts.get(name, 0) == 0,
+                  f"kernel {name} launched at render_scale 1")
+        else:
+            check(counts.get(name, 0) > 0, f"kernel {name} never launched")
     n_frames = n_warm + n_timed
     check(counts["shade"] == rs.total_bounce_limit * n_frames,
           f"shade launched {counts['shade']} times in {n_frames} frames")
+    check_frame(out, (fh, fw, 3), "main path")
     u8 = out.cpu().numpy()
-    check(u8.shape == (fh, fw, 3) and u8.dtype == np.uint8,
-          f"frame shape {u8.shape} {u8.dtype}")
-    check(u8.std() > 1.0, "frame is constant")
-    check(bool(torch.isfinite(out.float()).all()), "frame not finite")
     log(f"frame u8: shape {u8.shape}, mean {u8.mean():.2f}, std "
         f"{u8.std():.2f}")
 
+    phase("in-line frame")
     # the in-line configuration (fused shading off), for the record: the
     # host's speed drifts within a call, so the two engines render in turns
     # (fused, in-line, in-line, fused, ...) and each keeps its own median
@@ -831,9 +1007,9 @@ def main() -> int:
     inline_counts = K.launch_counts()
     log(f"launch counts over {n_warm} in-line frames: {inline_counts}")
     for name in KERNELS:
-        if name == "shade":
+        if name == "shade" or name in RUNG_ONLY:
             check(inline_counts.get(name, 0) == 0,
-                  "the in-line frame launched the fused shade kernel")
+                  f"the in-line frame launched kernel {name}")
         else:
             check(inline_counts.get(name, 0) > 0,
                   f"kernel {name} never launched in the in-line frame")
@@ -845,12 +1021,14 @@ def main() -> int:
     wins = sum(a < b for a, b in zip(ab["fused"], ab["inline"]))
     log(f"fused faster than in-line in {wins} of {len(ab['fused'])} turns")
 
+    phase("profiles")
     prof = profile_frames(eng)
     log_profile(f"shipped settings {fw}x{fh}", prof)
     prof_inline = profile_frames(inline)
     log_profile(f"in-line shading {fw}x{fh}", prof_inline)
     del inline
 
+    phase("card vs CPU")
     whole = {}
     for label, st in (("shipped", Settings().replace(rendering={
             "render_width": VS_CPU[0], "render_height": VS_CPU[1]})),
@@ -863,6 +1041,44 @@ def main() -> int:
               == st.rendering.fused_shading,
               f"{label}: K4 launches do not match fused_shading")
 
+    phase("rung frames")
+    # the dynamic-resolution rungs of the 1080p frame, each with its own
+    # launch counts (K7's are the ones its kernel line reports)
+    rungs = rung_frames(eng, K, n_warm, n_timed)
+    rung_launches = {name: sum(r["launches"][name] for r in rungs.values())
+                     for name in KERNELS}
+    phase("rungs in turns")
+    # for the record: the rungs and the native frame in turns (one engine
+    # each, sharing the world and asset tables, which no frame writes),
+    # and a profile at the 1/2 rung
+    eng.set_render_scale(1.0)
+    by_rung = {"1": eng}
+    for label, scale in RUNGS.items():
+        by_rung[label] = copy.copy(eng)
+        by_rung[label].set_render_scale(scale)
+    for e in by_rung.values():
+        for _ in range(n_warm):
+            e.render_realtime_device()
+    rung_turns = interleaved(by_rung, n_pairs=4)
+    for label, ts in rung_turns.items():
+        log(f"frame {fw}x{fh} in turns, scale {label}: median "
+            f"{statistics.median(ts):.3f} ms {[round(t, 3) for t in ts]}")
+    prof_half = profile_frames(by_rung["1/2"])
+    log_profile(f"1/2 rung {fw}x{fh}", prof_half)
+    del by_rung
+    phase("DynamicResolution walk")
+    walk = dynres_walk(eng, K)
+    eng.set_render_scale(1.0)
+    phase("card vs CPU at the 2/3 rung")
+    log("whole frame (2/3 rung), kernels on the card vs plain versions on "
+        "the CPU:")
+    easu0 = K.launch_counts()["easu"]
+    whole["rung 2/3"] = whole_frame_vs_cpu(Settings().replace(rendering={
+        "render_width": RUNG_VS_CPU[0], "render_height": RUNG_VS_CPU[1],
+        "render_scale": RUNGS["2/3"]}))
+    check(K.launch_counts()["easu"] > easu0, "the 2/3-rung frame vs the "
+          "CPU did not launch K7")
+
     # K4's share of a frame: bounce 0 (case a) and bounces 1-2 (case f,
     # the same instance and shape for both)
     sa = next(c for c in rep.cases if c["case"].startswith("(a)"))
@@ -873,13 +1089,15 @@ def main() -> int:
         f"against a bound of {shade_frame['bound_ms']:.4f} ms "
         f"({shade_frame['ms'] / shade_frame['bound_ms']:.2f}x); plain "
         f"{shade_frame['plain_ms']:.4f} ms")
+    # launches: the main path's count, or for a kernel that runs only
+    # below render_scale 1, its count over the rung frames
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         cs = [c for c in rep.cases if c["kernel"] == name]
         main_case = cs[0]
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=counts[name],
+            launches=(rung_launches if name in RUNG_ONLY else counts)[name],
             max_abs_err=max(c["max_abs_err"] for c in cs),
             ms=main_case["ms"], plain_ms=main_case["plain_ms"],
             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
@@ -892,7 +1110,11 @@ def main() -> int:
                        shade_per_frame=shade_frame, cases=rep.cases,
                        shade_diffs=shade_diffs, whole_frame=whole,
                        profile=prof, profile_inline=prof_inline,
+                       rungs=rungs, rung_turns_ms=rung_turns,
+                       profile_half_rung=prof_half, dynres_walk=walk,
+                       phase_s=phase_s,
                        kernels=kernels), f, indent=1)
+    phase("end")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

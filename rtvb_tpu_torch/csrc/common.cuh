@@ -32,6 +32,17 @@ __device__ __forceinline__ float clampf(float v, float lo, float hi) {
   return fminf(fmaxf(v, lo), hi);
 }
 
+// torch.clamp with scalar bounds: NaN propagates
+__device__ __forceinline__ float clamp_min(float v, float lo) {
+  return isnan(v) ? v : fmaxf(v, lo);
+}
+__device__ __forceinline__ float clamp_max(float v, float hi) {
+  return isnan(v) ? v : fminf(v, hi);
+}
+__device__ __forceinline__ float clamp2(float v, float lo, float hi) {
+  return isnan(v) ? v : fminf(fmaxf(v, lo), hi);
+}
+
 // Python-style (non-negative) modulo for s > 0
 __device__ __forceinline__ int pymod(int a, int s) {
   int r = a % s;

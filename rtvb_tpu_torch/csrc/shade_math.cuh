@@ -12,7 +12,7 @@
 //     path), so `x / PI` and `x / 3.0` are products with INV_PI / INV_3;
 //   * `c / tensor` is reciprocal(tensor) * c in PyTorch: (1.0f / t) * c;
 //   * torch.rsqrt is rsqrtf (not 1 / sqrtf), torch.sqrt is IEEE sqrtf;
-//   * torch.clamp propagates NaN (clamp_min / clamp_max below).
+//   * torch.clamp propagates NaN (clamp_min / clamp_max in common.cuh).
 #pragma once
 
 #include "common.cuh"
@@ -30,19 +30,15 @@ constexpr float MAX_THROUGHPUT = 32.0f;
 constexpr float MIN_LOBE_PROB = 0.05f;
 constexpr float MIN_COS = 1e-4f;
 
+// kernels take the math through `using namespace rtvb::shade`
+using rtvb::clamp2;
+using rtvb::clamp_max;
+using rtvb::clamp_min;
+
 struct V3 {
   float x, y, z;
 };
 
-__device__ __forceinline__ float clamp_min(float v, float lo) {
-  return isnan(v) ? v : fmaxf(v, lo);
-}
-__device__ __forceinline__ float clamp_max(float v, float hi) {
-  return isnan(v) ? v : fminf(v, hi);
-}
-__device__ __forceinline__ float clamp2(float v, float lo, float hi) {
-  return isnan(v) ? v : fminf(fmaxf(v, lo), hi);
-}
 __device__ __forceinline__ V3 add(V3 a, V3 b) {
   return {a.x + b.x, a.y + b.y, a.z + b.z};
 }

@@ -131,8 +131,14 @@ def shade_tables(lf, li, envf, envi, k_slots: int, device="cpu"):
 
 def engine_from_jax(jax_engine, engine):
     """Overwrite the port engine's world, tables, sky, atlas, cameras and
-    feedback states with the JAX engine's (same settings assumed)."""
+    feedback states with the JAX engine's (same settings assumed; the
+    internal and output sizes must agree)."""
     from .ops.dda import trace_tables
+    sizes = [(e.width, e.height, e.out_width, e.out_height)
+             for e in (jax_engine, engine)]
+    if sizes[0] != sizes[1]:
+        raise ValueError(f"engine sizes differ (internal w, h, output w, "
+                         f"h): JAX {sizes[0]}, port {sizes[1]}")
     dev = engine.device
     engine.world = world(jax_engine.world, dev)
     engine.materials = materials(jax_engine.materials, dev)

@@ -1,6 +1,6 @@
 """Post-processing: auto-exposure → bloom → vignette → tone map →
-[upscale] → RCAS sharpen → overlay (port of rtvb_tpu/render/postprocess.py
-on the scale-1 path; EASU upscaling is still to port, see ROADMAP)."""
+upscale (EASU, K7, below render_scale 1) → RCAS sharpen → overlay (port of
+rtvb_tpu/render/postprocess.py)."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -9,6 +9,7 @@ import torch
 
 from ..core.config import PostProcessingSettings, ToneMappingSettings
 
+from ..ops import easu_kernel
 from ..ops import mathutil as m
 
 
@@ -126,20 +127,46 @@ def tone_map(rgb, tm: ToneMappingSettings, exposure_log2):
 
 
 def easu(img, out_h: int, out_w: int):
-    """EASU upscale; only the equal-size identity is ported so far."""
+    """Edge-adaptive spatial upsampling (FSR-1-EASU class) of an (H, W, 3)
+    image: K7 on a CUDA tensor, its plain version on a CPU one."""
     if img.shape[0] == out_h and img.shape[1] == out_w:
         return img
-    raise NotImplementedError(
-        "EASU upscaling (render_scale < 1) is still to port (ROADMAP: K7)")
+    return easu_kernel.easu(img, out_h, out_w)
+
+
+def _catmull_rom_1d(img, out_size: int, axis: int):
+    in_size = img.shape[axis]
+    dev = img.device
+    pos = (torch.arange(out_size, dtype=torch.float32, device=dev) + 0.5) \
+        * in_size / out_size - 0.5
+    i1 = torch.clamp(torch.floor(pos).to(torch.int64), 0, in_size - 1)
+    f = pos - i1
+    i0 = torch.clamp(i1 - 1, 0, in_size - 1)
+    i2 = torch.clamp(i1 + 1, 0, in_size - 1)
+    i3 = torch.clamp(i1 + 2, 0, in_size - 1)
+    w0 = f * (-0.5 + f * (1.0 - 0.5 * f))
+    w1 = 1.0 + f * f * (-2.5 + 1.5 * f)
+    w2 = f * (0.5 + f * (2.0 - 1.5 * f))
+    w3 = f * f * (-0.5 + 0.5 * f)
+    sh = [1] * img.ndim
+    sh[axis] = out_size
+
+    def take(idx):
+        return img.index_select(axis, idx)
+
+    return (take(i0) * w0.reshape(sh) + take(i1) * w1.reshape(sh)
+            + take(i2) * w2.reshape(sh) + take(i3) * w3.reshape(sh))
 
 
 def upscale(img, out_h: int, out_w: int, mode: str = "easu"):
+    """Resample to the output size: "easu" (edge-adaptive), any other mode
+    Catmull-Rom bicubic (plain PyTorch, as the JAX package leaves it to
+    XLA)."""
     if img.shape[0] == out_h and img.shape[1] == out_w:
         return img
     if mode == "easu":
         return easu(img, out_h, out_w)
-    raise NotImplementedError(
-        f"{mode} upscaling is still to port (ROADMAP: K7 and the rungs)")
+    return _catmull_rom_1d(_catmull_rom_1d(img, out_h, 0), out_w, 1)
 
 
 def sharpen(img, strength: float):

@@ -6,8 +6,10 @@ u8, with the three feedback states (ReSTIR reservoirs, denoiser history,
 adapted exposure) held as tensors on the engine's device and rebound every
 frame.  `Engine()` runs the shipped `Settings()`: fused shading (the K4
 kernel) at native resolution.  `slice_settings()` is the same with the
-in-line shading composition (fused_shading False).  Only the native rung
-exists so far: render_scale below 1 (EASU, K7) raises.
+in-line shading composition (fused_shading False).  Below render_scale 1
+(the dynamic-resolution rungs 3/4, 2/3, 1/2) the frame path traces and
+denoises at the internal size and post upscales to the output size with
+EASU (the K7 kernel).
 """
 from __future__ import annotations
 
@@ -74,9 +76,11 @@ class Engine:
         self.scene = scene or SceneConfig()
         self.out_width = width or rs.render_width
         self.out_height = height or rs.render_height
-        self.render_scale = 1.0
-        self.set_render_scale(float(rs.render_scale))
-        self.width, self.height = self.out_width, self.out_height
+        # output (display) size against the internal render size: the
+        # frame path traces and denoises at output × render_scale and
+        # post upscales
+        self.render_scale = float(rs.render_scale)
+        self.width, self.height = self._internal_size(self.render_scale)
 
         asset_dir = os.path.join(_DATA, "assets")
         blocks_yaml = os.path.join(asset_dir, "blocks.yaml")
@@ -137,13 +141,24 @@ class Engine:
             fov_y_degrees=self.settings.camera_movement.fov_y_degrees,
             aspect=self.out_width / self.out_height, device=self.device)
 
+    def _internal_size(self, scale: float) -> tuple[int, int]:
+        """Internal render size = output × scale, rounded to even pixels
+        and capped at the output size."""
+        w = max(8, int(round(self.out_width * scale / 2.0)) * 2)
+        h = max(8, int(round(self.out_height * scale / 2.0)) * 2)
+        return min(w, self.out_width), min(h, self.out_height)
+
     def set_render_scale(self, scale: float):
-        """Only the native rung exists in this slice."""
-        if scale != 1.0:
-            raise NotImplementedError(
-                "render_scale < 1 needs the EASU kernel (K7) and the rung "
-                "ladder, still to port (ROADMAP)")
-        self.render_scale = 1.0
+        """Switch the internal render size (a dynamic-resolution rung).  A
+        size change resets the per-resolution states (ReSTIR reservoirs,
+        denoiser history)."""
+        w, h = self._internal_size(scale)
+        self.render_scale = scale
+        if (w, h) == (self.width, self.height):
+            return
+        self.width, self.height = w, h
+        self.restir_state = None
+        self.denoiser_state = None
 
     def _nonsolid_ids(self):
         return tuple(b.id for b in self.block_registry.blocks if b.instanced)

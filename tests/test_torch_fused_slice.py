@@ -2,8 +2,11 @@
 at 64×64, device="cpu": fused shading through K4's plain version) against
 the JAX package's `_build_run` composition with shade_backend="xla"
 (render_frame → _denoise_jit → postprocess.run → u8), both started from
-identical state carried across with rtvb_tpu_torch.interop; and the
-port's fused frame against its own in-line frame.
+identical state carried across with rtvb_tpu_torch.interop; the same at
+the 2/3 rung of a 96×96 output (64×64 inside, exact 3:2 on both axes: the
+port's EASU against JAX's); and the port's fused frame against its own
+in-line frame.  The JAX path trace + denoise at 64×64 compiles once and
+serves both sizes' frames (only the post differs).
 
 Bars (why the whole-frame ones are statistical: tests/test_torch_slice.py):
 * G-buffers of frame 1: equal to 1e-4 on ≥ 99.9% of pixels per plane;
@@ -35,6 +38,7 @@ from rtvb_tpu_torch.render.renderer import Engine, slice_settings
 torch.set_num_threads(2)
 
 H = W = 64
+RUNG_OUT = 96                  # the 2/3 rung of a 96×96 output is 64×64
 
 
 def _shipped(width, height):
@@ -42,51 +46,62 @@ def _shipped(width, height):
                                          "render_height": height})
 
 
-def _jax_frame_fn(je):
+def _jax_trace_denoise_fn(je):
+    """render_frame → _denoise_jit at je's internal size, jitted."""
     rs_cfg = dataclasses.replace(je.settings.rendering,
                                  local_light_candidates=je._n_local)
     tp = je._tp
 
     def run(world, mats, lights, sky_state, cam, hist_cam, frame_idx,
-            prev_restir, light_remap, dstate, post_state, dt, ent, atlas):
+            prev_restir, light_remap, dstate, ent, atlas):
         def trace_fn(o, d, t_cap=None, any_hit=False):
             return jdda.trace(o, d, world.colmask, world.df_super[0], tp,
                               t_cap=t_cap, any_hit=any_hit,
                               maxh_row=world.maxh_super[0])
         g, new_restir = jpt.render_frame(
             je.cfg, world, mats, lights, sky_state, cam, hist_cam, frame_idx,
-            W, H, rs_cfg, trace_fn, prev_restir=prev_restir,
+            je.width, je.height, rs_cfg, trace_fn, prev_restir=prev_restir,
             light_remap=light_remap, entities=ent, atlas=atlas,
             shade_backend="xla", half_res_gi=rs_cfg.half_res_gi)
         rgb, new_d = _denoise_jit(g, dstate, je.settings.denoising)
-        out, new_p = jpp.run(rgb, post_state, je.settings.post_processing,
-                             je.settings.tone_mapping, dt, H, W)
-        u8 = (jnp.clip(out, 0.0, 1.0) * 255.0 + 0.5).astype(jnp.uint8)
-        return g, u8, new_restir, new_d, new_p
+        return g, rgb, new_restir, new_d
 
     return jax.jit(run)
 
 
-@pytest.fixture(scope="module")
-def frames():
-    """Two JAX fused frames; after each, a port engine holding the state
+def _jax_post_fn(je):
+    """postprocess.run → u8 at je's output size, jitted."""
+    def post(rgb, post_state, dt):
+        out, new_p = jpp.run(rgb, post_state, je.settings.post_processing,
+                             je.settings.tone_mapping, dt, je.out_height,
+                             je.out_width)
+        u8 = (jnp.clip(out, 0.0, 1.0) * 255.0 + 0.5).astype(jnp.uint8)
+        return u8, new_p
+
+    return jax.jit(post)
+
+
+def _two_frames(settings, trace_denoise):
+    """Two JAX frames of `settings` (trace + denoise through the shared
+    jitted `trace_denoise`); after each, a port engine holding the state
     the JAX engine had BEFORE that frame."""
-    settings = _shipped(W, H)
-    je = JEngine(settings=JSettings.from_dict(settings.to_dict()), width=W,
-                 height=H, backend="xla")
+    je = JEngine(settings=JSettings.from_dict(settings.to_dict()),
+                 backend="xla")
+    assert (je.width, je.height) == (W, H)
     assert je.settings.rendering.fused_shading
     je.restir_state = _commit(jrestir.initial_state(H, W))
     je.denoiser_state = _commit(initial_denoiser_state(H, W))
-    fn = _jax_frame_fn(je)
+    post = _jax_post_fn(je)
     out = []
     for _ in range(2):
         pe = interop.engine_from_jax(je, Engine(settings=settings,
                                                 device="cpu"))
-        g, u8, nr, nd, npost = fn(
+        g, rgb, nr, nd = trace_denoise(
             je.world, je.materials, je.lights, je.sky_state, je.camera,
             je.history_camera, je.frame_index, je.restir_state,
-            je._light_remap, je.denoiser_state, je.post_state,
-            jnp.float32(1 / 60), je.entity_buffers(), je.texture_atlas)
+            je._light_remap, je.denoiser_state, je.entity_buffers(),
+            je.texture_atlas)
+        u8, npost = post(rgb, je.post_state, jnp.float32(1 / 60))
         out.append(dict(port=pe, g=g, u8=np.asarray(u8)))
         je.restir_state, je.denoiser_state, je.post_state = nr, nd, npost
         je.frame_index += 1
@@ -94,12 +109,32 @@ def frames():
     return out
 
 
+@pytest.fixture(scope="module")
+def trace_denoise():
+    je = JEngine(settings=JSettings.from_dict(_shipped(W, H).to_dict()),
+                 backend="xla")
+    return _jax_trace_denoise_fn(je)
+
+
+@pytest.fixture(scope="module")
+def frames(trace_denoise):
+    """Two JAX fused frames at 64×64 and the port engines before each."""
+    return _two_frames(_shipped(W, H), trace_denoise)
+
+
+@pytest.fixture(scope="module")
+def rung_frames(trace_denoise):
+    """The same at the 2/3 rung of a 96×96 output: 64×64 inside."""
+    return _two_frames(Settings().replace(rendering={
+        "render_width": RUNG_OUT, "render_height": RUNG_OUT,
+        "render_scale": 2.0 / 3.0}), trace_denoise)
+
+
 def _frac_close(a, b, tol=1e-4):
     return np.mean(np.isclose(np.asarray(a), b, rtol=tol, atol=tol))
 
 
-def test_fused_frame1_gbuffers_match(frames):
-    f = frames[0]
+def _gbuffers_match(f):
     pg, _ = f["port"].render_gbuffers()
     jg = f["g"]
     jd = np.asarray(jg.depth)
@@ -118,17 +153,46 @@ def test_fused_frame1_gbuffers_match(frames):
                    == pg.emissive_first.numpy()) >= 0.999
 
 
-@pytest.mark.parametrize("frame", [0, 1])
-def test_fused_whole_frame_u8_matches(frames, frame):
-    f = frames[frame]
+def _u8_matches(f, out, label):
     u8 = f["port"].render_realtime()
-    assert u8.shape == (H, W, 3) and u8.dtype == np.uint8
+    assert u8.shape == (out, out, 3) == f["u8"].shape
+    assert u8.dtype == np.uint8
     d = np.abs(u8.astype(np.int32) - f["u8"].astype(np.int32))
     mean_d, frac3 = d.mean(), np.mean(d.max(axis=-1) <= 3)
-    print(f"fused whole frame {frame + 1}: mean |d| {mean_d:.4f}, "
-          f"pixels within 3/255 {frac3:.4f}")
+    print(f"{label}: mean |d| {mean_d:.4f}, pixels within 3/255 "
+          f"{frac3:.4f}")
     assert mean_d <= 1.0
     assert frac3 >= 0.90
+
+
+def test_fused_frame1_gbuffers_match(frames):
+    _gbuffers_match(frames[0])
+
+
+@pytest.mark.parametrize("frame", [0, 1])
+def test_fused_whole_frame_u8_matches(frames, frame):
+    _u8_matches(frames[frame], W, f"fused whole frame {frame + 1}")
+
+
+def test_rung_frame1_gbuffers_match(rung_frames):
+    f = rung_frames[0]
+    assert (f["port"].width, f["port"].height) == (W, H)
+    assert (f["port"].out_width, f["port"].out_height) == (RUNG_OUT,
+                                                           RUNG_OUT)
+    _gbuffers_match(f)
+
+
+@pytest.mark.parametrize("frame", [0, 1])
+def test_rung_whole_frame_u8_matches(rung_frames, frame):
+    _u8_matches(rung_frames[frame], RUNG_OUT,
+                f"2/3-rung whole frame {frame + 1}")
+
+
+def test_engine_from_jax_refuses_other_sizes(frames):
+    class Sized:
+        width, height, out_width, out_height = W, H, RUNG_OUT, RUNG_OUT
+    with pytest.raises(ValueError):
+        interop.engine_from_jax(Sized(), frames[0]["port"])
 
 
 def _path_traced(settings, n=3):

@@ -8,7 +8,8 @@ version's), K6 to 1e-5 relative; K4 on the six cases of chip_smoke.py
 (the frame's own bounce inputs, synthetic lights, blue noise off, the
 generic instance, bounce 1 as the frame calls it) to its
 bar: the int outputs equal on ≥ 99.9% of pixels, the floats within 1e-5
-relative there."""
+relative there; K7 (EASU) bit-exact at the rungs' ratios 4:3, 3:2, 2:1 and
+a mixed per-axis one, on images with flat patches (no direction)."""
 import numpy as np
 import pytest
 import torch
@@ -180,3 +181,42 @@ def test_shade_wrapper_counts_and_raises(shade_cases):
     with pytest.raises(TypeError):
         RK.fused_shade(*args[:3], args[3].double(), *args[4:], **kw)
     assert RK.SHADE.launches == before + 1
+
+
+# (in_h, in_w, out_h, out_w): 4:3, 3:2, 2:1 on ragged sizes; 214×120 →
+# 320×180 (2/3 of 320×180, the axes' ratios differ)
+EASU_CASES = {"4:3": (45, 60, 60, 80), "3:2": (40, 66, 60, 99),
+              "2:1": (37, 50, 74, 100), "mixed": (120, 214, 180, 320)}
+
+
+def _easu_image(h, w, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    img = torch.rand(h, w, 3, generator=g)
+    img[: h // 3, : w // 3] = 0.25          # flat: no direction there
+    return img.to(device)
+
+
+@pytest.mark.parametrize("case", list(EASU_CASES))
+def test_easu_kernel_matches_plain(cuda, case):
+    from rtvb_tpu_torch.ops import easu_kernel
+    h, w, oh, ow = EASU_CASES[case]
+    img = _easu_image(h, w, 6, cuda)
+    a = easu_kernel._easu_cuda(img, oh, ow)
+    b = easu_kernel.easu_plain(img, oh, ow)
+    assert a.shape == (oh, ow, 3)
+    assert _bits_equal(a, b)
+
+
+def test_easu_wrapper_counts_and_raises(cuda):
+    from rtvb_tpu_torch.ops import easu_kernel
+    img = _easu_image(20, 30, 7, cuda)
+    before = easu_kernel.EASU.launches
+    easu_kernel.easu(img, 40, 60)
+    assert easu_kernel.EASU.launches == before + 1
+    with pytest.raises(TypeError):
+        easu_kernel.easu(img.double(), 40, 60)
+    with pytest.raises(ValueError):
+        easu_kernel.easu(img.transpose(0, 1), 60, 40)
+    with pytest.raises(ValueError):
+        easu_kernel._easu_cuda(img.cpu(), 40, 60)
+    assert easu_kernel.EASU.launches == before + 1

@@ -1,8 +1,9 @@
 """The port never imports JAX nor the JAX package `rtvb_tpu`: in a fresh
 interpreter, import every rtvb_tpu_torch module, build a 32×32
-Engine(device="cpu") with the shipped settings and render one frame (the
-frame catches lazy imports, such as a mesh loader reached only while
-building the decoration soup), then check sys.modules.  A scan of the sources catches import lines on
+Engine(device="cpu") with the shipped settings and render one frame at
+native resolution and one at the 1/2 rung (EASU) (the frames catch lazy
+imports, such as a mesh loader reached only while building the decoration
+soup), then check sys.modules.  A scan of the sources catches import lines on
 paths the frame does not reach."""
 import os
 import pkgutil
@@ -26,6 +27,10 @@ for n in names:
 from rtvb_tpu_torch.render.renderer import Engine
 eng = Engine(width=32, height=32, device="cpu")     # the shipped Settings()
 assert eng.settings.rendering.fused_shading
+out = eng.render_realtime()
+assert out.shape == (32, 32, 3), out.shape
+eng.set_render_scale(0.5)                  # the 1/2 rung: EASU upscale
+assert (eng.width, eng.height) == (16, 16)
 out = eng.render_realtime()
 assert out.shape == (32, 32, 3), out.shape
 leaked = sorted(m for m in sys.modules
