@@ -108,6 +108,14 @@ def sync():
     torch.cuda.synchronize()
 
 
+# cycles of the card's spin kernel queued ahead of a timed window (~1 ms
+# and ~4 ms at the H100's clocks): the host enqueues the timed calls while
+# the card waits, so the events time the card's work and not the host's
+# launch latency
+PAD_CYCLES = 2_000_000
+ROUND_PAD_CYCLES = 8_000_000
+
+
 def cuda_ms(fn, n: int = 10) -> float:
     """Median over n runs of one call, timed with CUDA events."""
     import torch
@@ -117,12 +125,37 @@ def cuda_ms(fn, n: int = 10) -> float:
     for _ in range(n):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(PAD_CYCLES)
         start.record()
         fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def timed_rounds(fns: dict, rounds: int = 7, runs: int = 20) -> dict:
+    """Several functions timed in turns: each round runs every function
+    `runs` times back to back between two CUDA events, the order reversed
+    every round → {label: [ms a call, one per round]}."""
+    import torch
+    for fn in fns.values():
+        fn()
+    sync()
+    out = {k: [] for k in fns}
+    labels = list(fns)
+    for i in range(rounds):
+        for label in (labels if i % 2 == 0 else labels[::-1]):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(ROUND_PAD_CYCLES)
+            start.record()
+            for _ in range(runs):
+                fns[label]()
+            end.record()
+            end.synchronize()
+            out[label].append(start.elapsed_time(end) / runs)
+    return out
 
 
 def card_line() -> str:
@@ -203,7 +236,131 @@ def exact(fields):
     return cmp
 
 
-def kernel_cases(eng, rep: Report):
+def capture_frame_calls(eng):
+    """The K1 and K6 calls of one frame of `eng` (it advances the engine's
+    state like any frame), their tensors copied: ([(o, d, t_cap,
+    any_hit)], [(illum, var, depth, normal, step, phis)]) in call order."""
+    from rtvb_tpu_torch.render import denoiser, pathtracer
+    traces, atrous = [], []
+    orig_trace, orig_atrous = pathtracer.trace, denoiser.atrous_pass
+
+    def rec_trace(o, d, tables, tp, t_cap=None, any_hit=False):
+        traces.append((tuple(c.clone() for c in o),
+                       tuple(c.clone() for c in d),
+                       None if t_cap is None else t_cap.clone(), any_hit))
+        return orig_trace(o, d, tables, tp, t_cap=t_cap, any_hit=any_hit)
+
+    def rec_atrous(illum, var, depth, normal, step, *phis):
+        atrous.append((illum.clone(), var.clone(), depth.clone(),
+                       normal.clone(), step, phis))
+        return orig_atrous(illum, var, depth, normal, step, *phis)
+    pathtracer.trace, denoiser.atrous_pass = rec_trace, rec_atrous
+    try:
+        eng.render_realtime_device()
+    finally:
+        pathtracer.trace, denoiser.atrous_pass = orig_trace, orig_atrous
+    return traces, atrous
+
+
+def trace_inputs(eng, traces) -> dict:
+    """K1's cases: {label: (o, d, t_cap, any_hit)}.  First the frame's five
+    launches as captured (closest hit at bounce 0 and the half-res bounces
+    1 and 2; any hit on bounce 0's shadow rays and on bounces 1-2's batched
+    into one wave), then random rays at the GI shapes and shadow rays
+    toward the sun from the primary hits."""
+    import torch
+    from rtvb_tpu_torch.core.camera import camera_rays
+    from rtvb_tpu_torch.ops import dda
+    from rtvb_tpu_torch.ops import mathutil as m
+    bounces = eng.settings.rendering.total_bounce_limit
+    check(len(traces) == bounces + 2 and not any(c[3] for c in
+                                                 traces[:bounces]),
+          f"{len(traces)} K1 calls in a frame")
+    cases = {}
+    for i, (o, d, cap, any_hit) in enumerate(traces):
+        h, w = o[0].shape
+        what = (f"bounce {i} closest" if not any_hit else
+                "bounce 0 shadows, any hit" if i == bounces else
+                "bounces 1-2 shadows batched, any hit")
+        cases[f"frame {what} {w}x{h}"] = (o, d, cap, any_hit)
+    dev = eng.device
+    H, W = eng.height, eng.width
+    gen = torch.Generator(device="cpu").manual_seed(7)
+
+    def rays(h, w):
+        u = torch.rand(3, h, w, generator=gen)
+        o = (u[0] * 64.0, u[1] * 19.0 + 1.0, u[2] * 64.0)
+        d = torch.randn(3, h, w, generator=gen)
+        d = d / d.norm(dim=0, keepdim=True)
+        return (tuple(c.contiguous().to(dev) for c in o),
+                tuple(c.contiguous().to(dev) for c in d))
+    h2, w2 = H // 2, W // 2
+    ro, rd = rays(h2, w2)
+    cases[f"random rays {w2}x{h2}, closest"] = (ro, rd, None, False)
+    bo, bd = rays(2 * h2, w2)
+    bcap = (torch.rand(2 * h2, w2, generator=gen) * 59.5 + 0.5).to(dev)
+    cases[f"random rays {w2}x{2 * h2}, any hit"] = (bo, bd, bcap, True)
+    o, d = camera_rays(eng.camera, W, H)
+    o = tuple(c.contiguous() for c in o)
+    d = tuple(c.contiguous() for c in d)
+    rec = dda.trace(o, d, eng._tables, eng._tp)
+    p = m.add(o, m.scale(d, torch.where(rec.hit, rec.t, 0.0)))
+    n = (rec.nx, rec.ny, rec.nz)
+    so = tuple(c.contiguous() for c in m.add(p, m.scale(n, 1e-3)))
+    sun = tuple(torch.full_like(p[0], float(c)) for c in
+                eng.sky_state.sun_dir)
+    cap = torch.where(rec.hit, 1e30, 0.0).contiguous()
+    cases[f"sun shadow rays {W}x{H}, any hit"] = (so, sun, cap, True)
+    return cases
+
+
+def atrous_inputs(eng, atrous) -> dict:
+    """K6's cases: {label: (illum, var, depth, normal, step, phis)}: the
+    frame's passes as captured (steps 1, 2, 4, 8), then step 16 on the
+    first pass's inputs."""
+    steps = [a[4] for a in atrous]
+    n_it = eng.settings.denoising.atrous_iterations
+    check(steps == [1 << i for i in range(n_it)],
+          f"K6 steps in a frame: {steps}")
+    cases = {}
+    for illum, var, depth, normal, step, phis in atrous:
+        H, W = depth.shape
+        cases[f"frame step {step}, {W}x{H}"] = (illum, var, depth, normal,
+                                                step, phis)
+    illum, var, depth, normal, _, phis = atrous[0]
+    cases[f"step 16, {W}x{H}"] = (illum, var, depth, normal, 16, phis)
+    return cases
+
+
+# K1's operations, counted from csrc/trace_kernel.cu: a ray's set-up and
+# epilogue (3 reciprocals, the slabs, the exit caps, the first column; the
+# closest hit's normal and material-index search), and one sub-step's
+# unconditional path (the column's y range against its mask, the next
+# column, the supercolumn lookups and tests); the skips' branches, taken
+# on some sub-steps, are not counted
+TRACE_SETUP_OPS = {False: 120, True: 70}
+TRACE_SUBSTEP_OPS = 96
+# K6's: per tap ≈ 39 flops (luminance 5, depth weight 4, normal dot and 6
+# squarings 12, luminance weight 3, the exponent 3, the weight 2, the four
+# sums 10), 24 taps and ≈ 15 for the centre
+ATROUS_PIXEL_OPS = 24 * 39 + 15
+
+
+def trace_work(eng, o, d, cap, any_hit, tab_bytes):
+    """(bytes, ops) of one K1 launch: rays in (+ the cap), the record out
+    (hit + t, or the whole closest-hit record: t, voxel, normal, material),
+    the tables; the set-up per ray and the sub-steps these rays run, from
+    the plain version's count."""
+    from rtvb_tpu_torch.ops import dda
+    n_rays = o[0].numel()
+    per = 24 + (4 if cap is not None else 0) + (4 + 4 if any_hit else 36)
+    n_sub = dda.substeps(o, d, eng._tables, eng._tp, cap, any_hit)
+    return (n_rays * per + tab_bytes,
+            TRACE_SETUP_OPS[any_hit] * n_rays + TRACE_SUBSTEP_OPS * n_sub,
+            n_sub)
+
+
+def kernel_cases(eng, rep: Report, traces, atrous):
     """K1, K2, K3, K5, K6 against their plain versions on CUDA inputs taken
     from the engine's frame (its size, half of it for the GI waves)."""
     import torch
@@ -224,8 +381,7 @@ def kernel_cases(eng, rep: Report):
     def rnd(*shape, lo=0.0, hi=1.0):
         return (torch.rand(*shape, generator=gen) * (hi - lo) + lo).to(dev)
 
-    # --- K1: camera rays (bounce 0), random rays (GI bounces, 960×540),
-    # shadow rays toward the sun (any hit)
+    # --- K1: the frame's five waves, then random and sun-shadow rays
     o, d = camera_rays(eng.camera, W, H)
     o = tuple(c.contiguous() for c in o)
     d = tuple(c.contiguous() for c in d)
@@ -233,46 +389,25 @@ def kernel_cases(eng, rep: Report):
     hit_frac = float(rec.hit.float().mean())
     log(f"primary hit fraction at the scene camera: {hit_frac:.4f}")
     check(0.5 < hit_frac < 0.9, f"hit fraction {hit_frac} off 0.7")
-    closest = exact(dda.HitRecord._fields)
-    tab_bytes = nbytes(*(t for t in tables if isinstance(t, torch.Tensor)))
-
-    def trace_work(n_rays, any_hit):
-        # rays in (+ the cap), the record out (hit byte + t, or the whole
-        # closest-hit record: t, voxel, normal, material), the tables; ops:
-        # the ray setup alone (3 reciprocals, the slab test, the exit cap),
-        # an undercount of the march, which depends on the data
-        per = 24 + (4 + 5 if any_hit else 33)
-        return n_rays * per + tab_bytes, 30 * n_rays
-    rep.case("trace", f"closest, camera rays {W}x{H}",
-             lambda: dda.trace_cuda(o, d, tables, tp),
-             lambda: dda.trace_plain(o, d, tables, tp), closest,
-             trace_work(H * W, False))
-    h2, w2 = H // 2, W // 2
-    ro = (rnd(h2, w2, hi=64.0), rnd(h2, w2, lo=1.0, hi=20.0),
-          rnd(h2, w2, hi=64.0))
-    rd = torch.randn(3, h2, w2, generator=gen).to(dev)
-    rd = rd / rd.norm(dim=0, keepdim=True)
-    rd = tuple(c.contiguous() for c in rd)
-    rep.case("trace", f"closest, random rays {w2}x{h2}",
-             lambda: dda.trace_cuda(ro, rd, tables, tp),
-             lambda: dda.trace_plain(ro, rd, tables, tp), closest,
-             trace_work(h2 * w2, False))
     p = m.add(o, m.scale(d, torch.where(rec.hit, rec.t, 0.0)))
     n = (rec.nx, rec.ny, rec.nz)
-    so = tuple(c.contiguous() for c in m.add(p, m.scale(n, 1e-3)))
-    sun = tuple(torch.full_like(p[0], float(c)) for c in
-                eng.sky_state.sun_dir)
-    cap = torch.where(rec.hit, 1e30, 0.0).contiguous()
-    anyh = exact(("hit", "t"))
-    rep.case("trace", f"any hit, sun shadow rays {W}x{H}",
-             lambda: dda.trace_cuda(so, sun, tables, tp, cap, True),
-             lambda: dda.trace_plain(so, sun, tables, tp, cap, True), anyh,
-             trace_work(H * W, True))
-    rcap = rnd(h2, w2, lo=0.5, hi=60.0)
-    rep.case("trace", f"any hit, random rays {w2}x{h2}",
-             lambda: dda.trace_cuda(ro, rd, tables, tp, rcap, True),
-             lambda: dda.trace_plain(ro, rd, tables, tp, rcap, True), anyh,
-             trace_work(h2 * w2, True))
+    tab_bytes = nbytes(*(t for t in tables if isinstance(t, torch.Tensor)))
+    substeps = {}
+    k1 = trace_inputs(eng, traces)
+    h2, w2 = H // 2, W // 2
+    ro, rd = k1[f"random rays {w2}x{h2}, closest"][:2]
+    for label, (to, td, tc, ah) in k1.items():
+        n_bytes, n_ops, n_sub = trace_work(eng, to, td, tc, ah, tab_bytes)
+        substeps[label] = dict(rays=to[0].numel(), substeps=n_sub)
+        log(f"    {label}: {n_sub} sub-steps, "
+            f"{n_sub / max(to[0].numel(), 1):.2f} a ray")
+        rep.case("trace", label,
+                 lambda a=(to, td, tc, ah): dda.trace_cuda(
+                     a[0], a[1], tables, tp, a[2], a[3]),
+                 lambda a=(to, td, tc, ah): dda.trace_plain(
+                     a[0], a[1], tables, tp, a[2], a[3]),
+                 exact(("hit", "t") if ah else dda.HitRecord._fields),
+                 (n_bytes, n_ops))
 
     # --- K2: the flower soup against the primary rays, capped at the voxel
     tri = eng.entity_buffers().tri_packed
@@ -362,30 +497,21 @@ def kernel_cases(eng, rep: Report):
                  vals13, grid, mode="bilinear", padding_mode="border",
                  align_corners=False))
 
-    # --- K6: the denoiser's à-trous passes on a real G-buffer
-    g, _ = eng.render_gbuffers()
-    illum = torch.stack(g.illum, dim=-1).contiguous()
-    normal = torch.stack(g.normal, dim=-1).contiguous()
-    depth = g.depth.contiguous()
-    var = rnd(H, W, hi=0.1)
-    dn = eng.settings.denoising
-    phis = (dn.phi_luminance, dn.phi_normal, dn.phi_depth)
-
+    # --- K6: the denoiser's à-trous passes as the frame runs them
     def atrous_cmp(a, b):
         e1 = errors(a[0], b[0])
         e2 = errors(a[1], b[1])
         check(e1[1] <= 1e-5 or e1[0] <= 1e-6, f"atrous illum {e1}")
         check(e2[1] <= 1e-5 or e2[0] <= 1e-7, f"atrous var {e2}")
         return max(e1[0], e2[0]), max(e1[1], e2[1])
-    for step in (1, 2, 4, 8, 16):
-        rep.case("atrous", f"step {step}, {W}x{H}",
-                 lambda s=step: atrous_kernel._atrous_cuda(
-                     illum, var, depth, normal, s, *phis),
-                 lambda s=step: passes.atrous_pass_plain(
-                     illum, var, depth, normal, s, *phis), atrous_cmp,
-                 # illum, var, depth, normal in; illum, var out; 25 taps
-                 # of ~30 flops (luminance, normal and depth weights)
-                 (H * W * (32 + 16), 750 * H * W))
+    for label, args in atrous_inputs(eng, atrous).items():
+        rep.case("atrous", label,
+                 lambda a=args: atrous_kernel._atrous_cuda(*a[:5], *a[5]),
+                 lambda a=args: passes.atrous_pass_plain(*a[:5], *a[5]),
+                 atrous_cmp,
+                 # illum, var, depth, normal in; illum, var out
+                 (H * W * (32 + 16), ATROUS_PIXEL_OPS * H * W))
+    return substeps
 
 
 # ---------------------------------------------------------------------------
@@ -911,6 +1037,79 @@ def dynres_walk(eng, K, n_frames: int = 30) -> dict:
                 frames_below_1=below)
 
 
+def ptxas_report(build_log: str) -> list:
+    """Registers and spills of each kernel entry in nvcc's -Xptxas -v
+    output: [{kernel, registers, spill_stores, spill_loads}]."""
+    import re
+    out, name = [], None
+    for line in build_log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out.append(dict(kernel=name, spill_stores=int(m.group(1)),
+                            spill_loads=int(m.group(2))))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and out and out[-1]["kernel"] == name:
+            out[-1]["registers"] = int(m.group(1))
+            name = None
+    return [r for r in out if "registers" in r]
+
+
+def resident_blocks(eng) -> dict:
+    """Blocks of K1 and K6 that an SM holds at once at the frame's
+    settings, from the CUDA runtime (the grid K1 launches is this times
+    the SM count)."""
+    from rtvb_tpu_torch.ops import dda
+    from rtvb_tpu_torch.ops.denoise import atrous_kernel
+    out = {}
+    for any_hit in (False, True):
+        out[f"trace any_hit={any_hit}"] = dda.resident_blocks(
+            eng._tp, any_hit, eng.device)
+    for step in (1, 2, 4, 8, 16):
+        out[f"atrous step {step}"] = atrous_kernel.resident_blocks(
+            step, eng.device)
+    return out
+
+
+def warp_vs_grid_sample(eng, rounds: int = 7, runs: int = 20) -> dict:
+    """K5 nearest against torch's grid_sample on the same planes and
+    coordinates, in turns: `rounds` rounds of `runs` calls each, the order
+    reversed every round; the ratio K5 / grid_sample per round."""
+    import torch
+    from rtvb_tpu_torch.ops import warp_kernel
+    dev = eng.device
+    H, W = eng.height, eng.width
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    yy, xx = torch.meshgrid(torch.arange(H, device=dev, dtype=torch.float32),
+                            torch.arange(W, device=dev, dtype=torch.float32),
+                            indexing="ij")
+    sy = (yy + 3.3 + 0.8 * torch.sin(xx / 97.0)).contiguous()
+    sx = (xx - 7.6 + 0.8 * torch.cos(yy / 61.0)).contiguous()
+    hist8 = torch.randint(-2 ** 31, 2 ** 31 - 1, (8, H, W), generator=gen,
+                          dtype=torch.int32).to(dev).view(torch.float32)
+    grid = torch.stack([(sx + 0.5) / W * 2.0 - 1.0,
+                        (sy + 0.5) / H * 2.0 - 1.0], dim=-1)[None]
+    t = timed_rounds({
+        "k5": lambda: warp_kernel._warp_cuda(hist8, sy, sx, False, 0),
+        "grid_sample": lambda: torch.nn.functional.grid_sample(
+            hist8[None], grid, mode="nearest", padding_mode="border",
+            align_corners=False)}, rounds, runs)
+    ratios = [a / b for a, b in zip(t["k5"], t["grid_sample"])]
+    slower = sum(r > 1.0 for r in ratios)
+    log(f"K5 nearest / grid_sample over {rounds} rounds of {runs}: median "
+        f"{statistics.median(ratios):.4f}, range {min(ratios):.4f} - "
+        f"{max(ratios):.4f}; K5 slower in {slower} of {rounds} rounds; ms "
+        f"K5 {[round(x, 4) for x in t['k5']]}, grid_sample "
+        f"{[round(x, 4) for x in t['grid_sample']]}")
+    return dict(ms=t, ratios=ratios, median_ratio=statistics.median(ratios),
+                k5_slower_rounds=slower)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -951,9 +1150,19 @@ def main() -> int:
           "the main path must run the shipped defaults")
 
     phase("kernel cases")
+    ptxas = ptxas_report(K.LIBRARY.build_log or "")
+    for r in ptxas:
+        log(f"ptxas {r['kernel']}: {r['registers']} registers, "
+            f"{r['spill_stores']} B spill stores, {r['spill_loads']} B "
+            f"spill loads")
+    occupancy = resident_blocks(eng)
+    log(f"resident blocks an SM (the CUDA runtime's occupancy): {occupancy}")
     log("kernels against their plain versions (CUDA events, median of 10):")
     rep = Report()
-    kernel_cases(eng, rep)
+    traces, atrous = capture_frame_calls(eng)
+    substeps = kernel_cases(eng, rep, traces, atrous)
+    del traces, atrous
+    k5_rounds = warp_vs_grid_sample(eng)
     shade_diffs = shade_kernel_cases(eng, rep)
     # K7 on the tone-mapped frame each rung hands to EASU, and on a mixed
     # per-axis ratio: the 2/3 rung of 320×180 renders 214×120
@@ -1079,16 +1288,27 @@ def main() -> int:
     check(K.launch_counts()["easu"] > easu0, "the 2/3-rung frame vs the "
           "CPU did not launch K7")
 
-    # K4's share of a frame: bounce 0 (case a) and bounces 1-2 (case f,
-    # the same instance and shape for both)
+    # a frame's time of K1, K4 and K6 from the launches the frame makes:
+    # K1's five waves and K6's four steps as captured; K4 bounce 0 (case
+    # a) and bounces 1-2 (case f, the same instance and shape for both)
+    def frame_sum(label, cases):
+        tot = {k: sum(c[k] for c in cases)
+               for k in ("ms", "plain_ms", "bound_ms")}
+        log(f"{label} a frame: {tot['ms']:.4f} ms against a bound of "
+            f"{tot['bound_ms']:.4f} ms ({tot['ms'] / tot['bound_ms']:.2f}x);"
+            f" plain {tot['plain_ms']:.4f} ms")
+        return tot
     sa = next(c for c in rep.cases if c["case"].startswith("(a)"))
     sf = next(c for c in rep.cases if c["case"].startswith("(f)"))
-    shade_frame = {k: sa[k] + 2 * sf[k]
-                   for k in ("ms", "plain_ms", "bound_ms")}
-    log(f"K4 a frame, case (a) + 2 x case (f): {shade_frame['ms']:.4f} ms "
-        f"against a bound of {shade_frame['bound_ms']:.4f} ms "
-        f"({shade_frame['ms'] / shade_frame['bound_ms']:.2f}x); plain "
-        f"{shade_frame['plain_ms']:.4f} ms")
+    per_frame = {
+        "trace": frame_sum("K1, its five waves", [
+            c for c in rep.cases
+            if c["kernel"] == "trace" and c["case"].startswith("frame")]),
+        "shade": frame_sum("K4, case (a) + 2 x case (f)", [sa, sf, sf]),
+        "atrous": frame_sum("K6, steps 1, 2, 4, 8", [
+            c for c in rep.cases
+            if c["kernel"] == "atrous" and c["case"].startswith("frame")]),
+    }
     # launches: the main path's count, or for a kernel that runs only
     # below render_scale 1, its count over the rung frames
     kernels = []
@@ -1107,7 +1327,9 @@ def main() -> int:
                        frame_ms_all=times, enqueue_ms=enq_ms,
                        in_turns_ms=ab, inline_frame_ms=inline_ms,
                        launches=counts, launches_inline=inline_counts,
-                       shade_per_frame=shade_frame, cases=rep.cases,
+                       per_frame=per_frame, cases=rep.cases,
+                       trace_substeps=substeps, ptxas=ptxas,
+                       resident_blocks=occupancy, warp_rounds=k5_rounds,
                        shade_diffs=shade_diffs, whole_frame=whole,
                        profile=prof, profile_inline=prof_inline,
                        rungs=rungs, rung_turns_ms=rung_turns,

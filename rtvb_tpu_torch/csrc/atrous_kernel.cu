@@ -7,56 +7,117 @@
 // the XLA fallback the TPU path used above MAX_STEP = 8.  Plain version:
 // rtvb_tpu_torch/ops/denoise/passes.py `atrous_pass_plain`.
 //
-// What bounds it on Hopper: memory traffic — 25 taps × 32 bytes of
-// guides and signal per pixel, mostly served by L1/L2 because neighbouring
-// threads share taps — plus 24 expf per pixel.  Design: one thread per
-// pixel, taps read with edge-clamped coordinates (the plain version's
-// `shift` semantics) in the same order, and the weights computed op for op
-// like the plain version so the two agree to the bit.
+// What bounds it on Hopper: each pixel reads 25 taps of 9 values (colour,
+// variance, depth, normal and the tap's luminance) and spends ≈ 60
+// instructions on each of its 24 weights, two IEEE divisions and an expf
+// among them.  Fetched straight from global memory, the taps cost ≈ 5 L2
+// reads of every input at step 1 and more at wider steps.  Design, like
+// the TPU kernel's VMEM window:
+// - a 32×8 block stages its stencil window once, with coalesced loads,
+//   into shared memory as nine planes (r, g, b, var, depth, nx, ny, nz and
+//   luminance, computed once per texel with the same rtvb::luminance), and
+//   runs all 25 taps from there, conflict-free;
+// - the window is the tile plus a halo of 2·step (36×12 texels at step 1,
+//   48×24 at step 4: ≤ 41.5 KB).  Where that would pass 48 KB (steps ≥ 8),
+//   the block takes a 32×8 tile of the sub-lattice of one residue class
+//   mod step instead: its taps fall on the same lattice, so the halo is 2
+//   lattice points and the window 36×12 at any step;
+// - window texels past the border hold edge-clamped copies, which is the
+//   plain version's `shift` (clamp to [0, H-1] × [0, W-1]);
+// - each weight is computed op for op like the plain version's, in the
+//   same tap order, so the two agree to the bit (--fmad=false).
 #include "common.cuh"
 
 namespace {
 
+constexpr int TX = 32, TY = 8;            // a block's tile (lattice points)
+constexpr int PLANES = 9;
+constexpr size_t WINDOW_BUDGET = 48 * 1024;
+
 __constant__ float W1D[3] = {0.375f, 0.25f, 0.0625f};
 
-__global__ void atrous_kernel(const float* __restrict__ illum,
-                              const float* __restrict__ var,
-                              const float* __restrict__ depth,
-                              const float* __restrict__ normal, int H, int W,
-                              int step, float phi_lum, float phi_depth,
-                              int n_squarings, float* __restrict__ out,
-                              float* __restrict__ out_var) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= H * W) return;
-  const int y = p / W, x = p % W;
-  const float r = illum[3 * p], g = illum[3 * p + 1], b = illum[3 * p + 2];
-  const float v = var[p];
-  const float d = depth[p];
-  const float nx = normal[3 * p], ny = normal[3 * p + 1],
-              nz = normal[3 * p + 2];
-  const float lum_c = rtvb::luminance(r, g, b);
+constexpr size_t window_bytes(int halo) {
+  return sizeof(float) * PLANES * (TX + 2 * halo) * (TY + 2 * halo);
+}
+
+// The block's pixels are (ry + lat·ly, rx + lat·lx) over a 32×8 tile of
+// lattice points (ly, lx) of the residue class (ry, rx); taps are g
+// lattice points apart (lat · g = step).
+__global__ void __launch_bounds__(TX * TY)
+atrous_kernel(const float* __restrict__ illum, const float* __restrict__ var,
+              const float* __restrict__ depth,
+              const float* __restrict__ normal, int H, int W, int lat, int g,
+              int tiles_x, int res_x, float phi_lum, float phi_depth,
+              int n_squarings, float* __restrict__ out,
+              float* __restrict__ out_var) {
+  extern __shared__ float win[];
+  const int ga = abs(g);
+  const int WW = TX + 4 * ga, WH = TY + 4 * ga, WN = WW * WH;
+  float* s_r = win;
+  float* s_g = s_r + WN;
+  float* s_b = s_g + WN;
+  float* s_v = s_b + WN;
+  float* s_d = s_v + WN;
+  float* s_nx = s_d + WN;
+  float* s_ny = s_nx + WN;
+  float* s_nz = s_ny + WN;
+  float* s_l = s_nz + WN;
+
+  const int res = blockIdx.x / tiles_x;
+  const int ry = res / res_x, rx = res % res_x;
+  const int lx0 = (blockIdx.x % tiles_x) * TX - 2 * ga;   // window origin
+  const int ly0 = blockIdx.y * TY - 2 * ga;
+  for (int wy = threadIdx.y; wy < WH; wy += TY) {
+    const int py = rtvb::clampi(ry + lat * (ly0 + wy), 0, H - 1);
+    for (int wx = threadIdx.x; wx < WW; wx += TX) {
+      const int px = rtvb::clampi(rx + lat * (lx0 + wx), 0, W - 1);
+      const int p = py * W + px;
+      const int i = wy * WW + wx;
+      const float r = illum[3 * p], gg = illum[3 * p + 1],
+                  b = illum[3 * p + 2];
+      s_r[i] = r;
+      s_g[i] = gg;
+      s_b[i] = b;
+      s_l[i] = rtvb::luminance(r, gg, b);
+      s_v[i] = var[p];
+      s_d[i] = depth[p];
+      s_nx[i] = normal[3 * p];
+      s_ny[i] = normal[3 * p + 1];
+      s_nz[i] = normal[3 * p + 2];
+    }
+  }
+  __syncthreads();
+
+  const int y = ry + lat * (ly0 + 2 * ga + static_cast<int>(threadIdx.y));
+  const int x = rx + lat * (lx0 + 2 * ga + static_cast<int>(threadIdx.x));
+  if (y >= H || x >= W) return;
+  const int c = (threadIdx.y + 2 * ga) * WW + threadIdx.x + 2 * ga;
+  const float r = s_r[c], gg = s_g[c], b = s_b[c];
+  const float v = s_v[c];
+  const float d = s_d[c];
+  const float nx = s_nx[c], ny = s_ny[c], nz = s_nz[c];
+  const float lum_c = s_l[c];
   const float sigma_l = phi_lum * sqrtf(fmaxf(v, 1e-8f)) + 1e-3f;
   const float w0 = 0.140625f;                 // 0.375²
-  float acc_r = r * w0, acc_g = g * w0, acc_b = b * w0;
+  float acc_r = r * w0, acc_g = gg * w0, acc_b = b * w0;
   float acc_v = v * 0.019775390625f;          // w0²
   float wsum = w0;
   const float d_ref = phi_depth * fmaxf(d, 1.0f);
+#pragma unroll
   for (int dy = -2; dy <= 2; ++dy) {
+#pragma unroll
     for (int dx = -2; dx <= 2; ++dx) {
       if (dy == 0 && dx == 0) continue;
       const float wk = W1D[abs(dy)] * W1D[abs(dx)];
-      // shift(img, oy, ox)[y, x] = img[clamp(y - oy), clamp(x - ox)]
-      const int q = rtvb::clampi(y - dy * step, 0, H - 1) * W +
-                    rtvb::clampi(x - dx * step, 0, W - 1);
-      const float qr = illum[3 * q], qg = illum[3 * q + 1],
-                  qb = illum[3 * q + 2];
-      const float qd = depth[q];
-      const float n_lum = rtvb::luminance(qr, qg, qb);
+      // shift(img, oy, ox)[y, x] = img[clamp(y - oy), clamp(x - ox)]:
+      // the window texel g·(dy, dx) lattice points back
+      const int q = c - (dy * WW + dx) * g;
+      const float qr = s_r[q], qg = s_g[q], qb = s_b[q];
+      const float qd = s_d[q];
+      const float n_lum = s_l[q];
       const float e_z = fabsf(qd - d) /
                         (d_ref * static_cast<float>(max(abs(dy) + abs(dx), 1)));
-      float w_n = fmaxf(normal[3 * q] * nx + normal[3 * q + 1] * ny +
-                            normal[3 * q + 2] * nz,
-                        0.0f);
+      float w_n = fmaxf(s_nx[q] * nx + s_ny[q] * ny + s_nz[q] * nz, 0.0f);
       for (int k = 0; k < n_squarings; ++k) w_n = w_n * w_n;
       const float e_l = fabsf(n_lum - lum_c) / sigma_l;
       float w = wk * expf(-(e_z + e_l)) * w_n;
@@ -64,15 +125,30 @@ __global__ void atrous_kernel(const float* __restrict__ illum,
       acc_r = acc_r + qr * w;
       acc_g = acc_g + qg * w;
       acc_b = acc_b + qb * w;
-      acc_v = acc_v + var[q] * (w * w);
+      acc_v = acc_v + s_v[q] * (w * w);
       wsum = wsum + w;
     }
   }
   const float inv = 1.0f / fmaxf(wsum, 1e-6f);
+  const int p = y * W + x;
   out[3 * p] = acc_r * inv;
   out[3 * p + 1] = acc_g * inv;
   out[3 * p + 2] = acc_b * inv;
   out_var[p] = acc_v * inv * inv;
+}
+
+// the shape of a pass at `step`: lattice stride and tap spacing on it
+void layout(int step, int* lat, int* g) {
+  // a contiguous window (lattice 1, taps `step` apart) where it fits the
+  // budget, else the residue classes mod |step| (taps 1 lattice point
+  // apart, in the step's direction)
+  const int s_abs = step < 0 ? -step : step;
+  *lat = 1;
+  *g = step;
+  if (window_bytes(2 * s_abs) > WINDOW_BUDGET) {
+    *lat = s_abs;
+    *g = step < 0 ? -1 : 1;
+  }
 }
 
 }  // namespace
@@ -82,14 +158,30 @@ RTVB_EXPORT int rtvb_atrous(const float* illum, const float* var,
                             int W, int step, float phi_lum, float phi_depth,
                             int n_pow, float* out, float* out_var,
                             void* stream) {
-  const int n = H * W;
-  if (n == 0) return 0;
+  if (H == 0 || W == 0) return 0;
   int n_squarings = 0;             // phi_normal = 2^n_squarings
   while ((1 << n_squarings) < n_pow) ++n_squarings;
-  const int threads = 256;
-  atrous_kernel<<<rtvb::blocks_for(n, threads), threads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-      illum, var, depth, normal, H, W, step, phi_lum, phi_depth, n_squarings,
-      out, out_var);
+  int lat = 1, g = 1;
+  layout(step, &lat, &g);
+  const int ga = g < 0 ? -g : g;
+  const int res_y = lat < H ? lat : H;     // the non-empty residue classes
+  const int res_x = lat < W ? lat : W;
+  const int tiles_x = rtvb::blocks_for(rtvb::blocks_for(W, lat), TX);
+  const int tiles_y = rtvb::blocks_for(rtvb::blocks_for(H, lat), TY);
+  const long long gx = static_cast<long long>(tiles_x) * res_y * res_x;
+  if (gx > 0x7FFFFFFFLL || tiles_y > 65535)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  atrous_kernel<<<dim3(static_cast<unsigned>(gx), tiles_y), dim3(TX, TY),
+                  window_bytes(2 * ga), static_cast<cudaStream_t>(stream)>>>(
+      illum, var, depth, normal, H, W, lat, g, tiles_x, res_x, phi_lum,
+      phi_depth, n_squarings, out, out_var);
   return rtvb::launch_status();
+}
+
+// blocks that one SM holds at once for a pass at `step`
+RTVB_EXPORT int rtvb_atrous_blocks(int step, int* per_sm) {
+  int lat = 1, g = 1;
+  layout(step, &lat, &g);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, atrous_kernel, TX * TY, window_bytes(2 * (g < 0 ? -g : g))));
 }

@@ -9,26 +9,74 @@
 // block-id / exception-search / material-index epilogue.  Plain version:
 // rtvb_tpu_torch/ops/dda.py `trace_plain`.
 //
-// What bounds it on Hopper: divergent per-ray loops (up to 96 column
-// sub-steps) with a table lookup per step — latency and branch divergence,
-// not bandwidth (a ray reads 28 bytes and writes ≤ 36).  Design: one thread
-// per ray, so a ray leaves the loop as soon as it is done instead of
-// waiting on its tile (the TPU kernel's granularity); the per-step tables
-// (column masks, schema words, the 128-slot envelope and distance field;
-// 33 KB for the 64×32×64 world) sit in shared memory, loaded once per
-// block; the exception list and the material map are read from global
-// memory once per ray.  No `_pack_heights` byte table: the shared-memory
-// mask fetch is already one load.
+// What bounds it on Hopper: the march, not bandwidth.  A ray reads 28 bytes
+// and writes ≤ 36, then runs a data-dependent loop of column sub-steps (up
+// to max_steps + 1, ≈ 100 operations and three table lookups each), so the
+// card's time goes to latency and to lanes that wait for the slowest ray
+// of their warp.  Design:
+// - persistent blocks: the grid is as many 256-thread blocks as the card
+//   holds at once.  Each block stages what the march reads — the column
+//   masks, the supercolumn distance field and the height envelope, 17 KB
+//   for the 64×32×64 world — into shared memory once, then walks the rays,
+//   instead of restaging them for every 256 rays.  The schema, the
+//   exception list and the material map are read once per ray in the
+//   epilogue, through the read-only cache.
+// - warp-sized chunks: each warp takes 32 rays at a time (an 8×4 pixel
+//   tile when the rays form an image, 32 consecutive rays otherwise) and
+//   the next chunk when all 32 are done, so the lanes of a warp start
+//   together on neighbouring pixels, whose marches are alike.
+// - one thread per ray and each ray's arithmetic in the plain version's
+//   order: the library is built with --fmad=false, so every record field
+//   equals the plain version's to the bit.
 #include "common.cuh"
 
 namespace {
 
 using rtvb::BIG;
 constexpr float EPS = 1e-6f;
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int TILE_W = 8;             // a warp's pixel tile on image rays
+constexpr int TILE_H = 32 / TILE_W;
+constexpr int SLOTS = 128;            // supercolumn table length
 
 struct World {
   int X, Y, Z, ss, sl, super_z, max_steps, maxh_max, n_exc, n_b2m;
 };
+
+// one launch's rays and how they are cut into warp-sized chunks
+struct Rays {
+  const float *ox, *oy, *oz, *dx, *dy, *dz, *tcap;
+  int n;
+  int width;      // > 0: an image of rows this wide, in 8×4 tiles
+  int tiles_x;    // tiles per image row
+  int n_chunks;
+};
+
+struct Tables {
+  const int *colmask, *df, *maxh, *schema, *exc_mask, *exc_key, *exc_id,
+      *b2m;
+};
+
+struct Record {
+  int* hit;
+  float* t;
+  int *ix, *iy, *iz;
+  float *nx, *ny, *nz;
+  int* mi;
+};
+
+// the ray a lane takes in a chunk, or -1 past the edge
+__device__ __forceinline__ int ray_of(const Rays& q, int chunk, int lane) {
+  if (q.width == 0) {
+    const int r = chunk * 32 + lane;
+    return r < q.n ? r : -1;
+  }
+  const int x = (chunk % q.tiles_x) * TILE_W + lane % TILE_W;
+  const int y = (chunk / q.tiles_x) * TILE_H + lane / TILE_W;
+  const int r = y * q.width + x;
+  return (x < q.width && r < q.n) ? r : -1;
+}
 
 __device__ __forceinline__ float safe_inv(float v) {
   float s = fabsf(v) < EPS ? (v >= 0.0f ? EPS : -EPS) : v;
@@ -57,15 +105,11 @@ __device__ __forceinline__ uint32_t range_mask(int ylo, int yhi) {
   return hi_mask & ~lo_mask;
 }
 
-__device__ int material_index(const World& w, const int* __restrict__ schema,
-                              const int* __restrict__ exc_mask,
-                              const int* __restrict__ exc_key,
-                              const int* __restrict__ exc_id,
-                              const int* __restrict__ b2m, int ix, int iy,
-                              int iz) {
+__device__ int material_index(const World& w, const Tables& tab, int ix,
+                              int iy, int iz) {
   int c = rtvb::clampi(ix * w.Z + iz, 0, w.X * w.Z - 1);
-  int sch = schema[c];
-  uint32_t emask = static_cast<uint32_t>(__ldg(exc_mask + c));
+  int sch = __ldg(tab.schema + c);
+  uint32_t emask = static_cast<uint32_t>(__ldg(tab.exc_mask + c));
   int h1 = sch & 31;
   int h2 = (sch >> 5) & 31;
   int bid = iy < h1 ? (sch >> 10) & 63
@@ -75,48 +119,22 @@ __device__ int material_index(const World& w, const int* __restrict__ schema,
   int lo = 0, hi = w.n_exc;                 // lower bound of key
   while (lo < hi) {
     int mid = (lo + hi) >> 1;
-    if (__ldg(exc_key + mid) < key) lo = mid + 1; else hi = mid;
+    if (__ldg(tab.exc_key + mid) < key) lo = mid + 1; else hi = mid;
   }
   lo = rtvb::clampi(lo, 0, w.n_exc - 1);
-  if (has_exc && __ldg(exc_key + lo) == key) bid = __ldg(exc_id + lo);
-  return __ldg(b2m + rtvb::clampi(bid, 0, w.n_b2m - 1));
+  if (has_exc && __ldg(tab.exc_key + lo) == key) bid = __ldg(tab.exc_id + lo);
+  return __ldg(tab.b2m + rtvb::clampi(bid, 0, w.n_b2m - 1));
 }
 
 template <bool ANY_HIT>
-__global__ void trace_kernel(
-    const float* __restrict__ oxp, const float* __restrict__ oyp,
-    const float* __restrict__ ozp, const float* __restrict__ dxp,
-    const float* __restrict__ dyp, const float* __restrict__ dzp,
-    const float* __restrict__ tcap, int n, const int* __restrict__ colmask_g,
-    const int* __restrict__ df_g, const int* __restrict__ maxh_g,
-    const int* __restrict__ schema_g, const int* __restrict__ exc_mask,
-    const int* __restrict__ exc_key, const int* __restrict__ exc_id,
-    const int* __restrict__ b2m, World w, int* __restrict__ hit_o,
-    float* __restrict__ t_o, int* __restrict__ ix_o, int* __restrict__ iy_o,
-    int* __restrict__ iz_o, float* __restrict__ nx_o,
-    float* __restrict__ ny_o, float* __restrict__ nz_o,
-    int* __restrict__ mi_o) {
-  extern __shared__ int smem[];
-  const int n_cols = w.X * w.Z;
-  uint32_t* colmask = reinterpret_cast<uint32_t*>(smem);
-  int* schema = smem + n_cols;
-  int* df = schema + (ANY_HIT ? 0 : n_cols);
-  int* maxh = df + 128;
-  for (int i = threadIdx.x; i < n_cols; i += blockDim.x) {
-    colmask[i] = static_cast<uint32_t>(colmask_g[i]);
-    if (!ANY_HIT) schema[i] = schema_g[i];
-  }
-  for (int i = threadIdx.x; i < 128; i += blockDim.x) {
-    df[i] = df_g[i];
-    maxh[i] = maxh_g[i];
-  }
-  __syncthreads();
-
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
-  const float ox = oxp[r], oy = oyp[r], oz = ozp[r];
-  const float dx = dxp[r], dy = dyp[r], dz = dzp[r];
+__device__ __forceinline__ void trace_ray(
+    int r, const Rays& q, const World& w, const Tables& tab,
+    const uint32_t* __restrict__ colmask, const int* __restrict__ df,
+    const int* __restrict__ maxh, const Record& out) {
+  const float ox = q.ox[r], oy = q.oy[r], oz = q.oz[r];
+  const float dx = q.dx[r], dy = q.dy[r], dz = q.dz[r];
   const int X = w.X, Y = w.Y, Z = w.Z;
+  const int n_cols = X * Z;
 
   const float inv_dx = safe_inv(dx), inv_dy = safe_inv(dy),
               inv_dz = safe_inv(dz);
@@ -129,7 +147,7 @@ __global__ void trace_kernel(
        static_cast<float>(Y), tyi, tyo);
   const float t_enter = fmaxf(fmaxf(txi, tzi), fmaxf(tyi, 0.0f));
   float t_exit = fminf(fminf(txo, tzo), tyo);
-  t_exit = fminf(t_exit, tcap[r]);
+  t_exit = fminf(t_exit, q.tcap[r]);
   // global ascending-ray exit cap at the world's height envelope
   const float t_gm = (static_cast<float>(w.maxh_max) - oy) * inv_dy;
   if (dy > EPS) t_exit = fminf(t_exit, t_gm);
@@ -192,7 +210,7 @@ __global__ void trace_kernel(
     // supercolumn empty-space skipping
     const int scx = nix >> w.sl;
     const int scz = niz >> w.sl;
-    const int sidx = rtvb::clampi(scx * w.super_z + scz, 0, 127);
+    const int sidx = rtvb::clampi(scx * w.super_z + scz, 0, SLOTS - 1);
     float jt = t_next;
     const float mh = static_cast<float>(maxh[sidx]);
     const float y_next = oy + dy * t_next;
@@ -232,55 +250,146 @@ __global__ void trace_kernel(
     alive = !done;
   }
 
-  hit_o[r] = hit ? 1 : 0;
+  out.hit[r] = hit ? 1 : 0;
   if (ANY_HIT) {
-    t_o[r] = hit ? t : BIG;
+    out.t[r] = hit ? t : BIG;
     return;
   }
-  t_o[r] = hit ? hit_t : BIG;
-  ix_o[r] = hit_ix;
-  iy_o[r] = hit_iy;
-  iz_o[r] = hit_iz;
+  out.t[r] = hit ? hit_t : BIG;
+  out.ix[r] = hit_ix;
+  out.iy[r] = hit_iy;
+  out.iz[r] = hit_iz;
   const float sx = dx > 0.0f ? 1.0f : (dx < 0.0f ? -1.0f : 0.0f);
   const float sy = dy > 0.0f ? 1.0f : (dy < 0.0f ? -1.0f : 0.0f);
   const float sz = dz > 0.0f ? 1.0f : (dz < 0.0f ? -1.0f : 0.0f);
-  nx_o[r] = hit_axis == 0 ? -sx : 0.0f;
-  ny_o[r] = hit_axis == 1 ? -sy : 0.0f;
-  nz_o[r] = hit_axis == 2 ? -sz : 0.0f;
-  mi_o[r] = material_index(w, schema, exc_mask, exc_key, exc_id, b2m,
-                           hit_ix, hit_iy, hit_iz);
+  out.nx[r] = hit_axis == 0 ? -sx : 0.0f;
+  out.ny[r] = hit_axis == 1 ? -sy : 0.0f;
+  out.nz[r] = hit_axis == 2 ? -sz : 0.0f;
+  out.mi[r] = material_index(w, tab, hit_ix, hit_iy, hit_iz);
+}
+
+template <bool ANY_HIT>
+__global__ void __launch_bounds__(THREADS)
+trace_kernel(Rays q, Tables tab, World w, Record out,
+             int* __restrict__ next_chunk) {
+  extern __shared__ int smem[];
+  const int n_cols = w.X * w.Z;
+  uint32_t* colmask = reinterpret_cast<uint32_t*>(smem);
+  int* df = smem + n_cols;
+  int* maxh = df + SLOTS;
+  for (int i = threadIdx.x; i < n_cols; i += THREADS)
+    colmask[i] = static_cast<uint32_t>(__ldg(tab.colmask + i));
+  for (int i = threadIdx.x; i < SLOTS; i += THREADS) {
+    df[i] = __ldg(tab.df + i);
+    maxh[i] = __ldg(tab.maxh + i);
+  }
+  __syncthreads();
+
+  // chunks in a grid-stride walk: warp k of the grid takes k, k + warps, …
+  const int lane = threadIdx.x & 31;
+  const int warps = gridDim.x * WARPS;
+  for (int chunk = blockIdx.x * WARPS + (threadIdx.x >> 5);
+       chunk < q.n_chunks; chunk += warps) {
+    const int r = ray_of(q, chunk, lane);
+    if (r >= 0) trace_ray<ANY_HIT>(r, q, w, tab, colmask, df, maxh, out);
+  }
+}
+
+size_t staged_bytes(int X, int Z) {
+  return sizeof(int) * (static_cast<size_t>(X) * Z + 2 * SLOTS);
+}
+
+// blocks of one instance that an SM holds at once with `smem` staged, and
+// the SM count, for the current device (cached)
+template <bool ANY_HIT>
+cudaError_t occupancy(size_t smem, int* per_sm, int* sms) {
+  struct Cached {
+    int device = -1;
+    size_t smem = 0;
+    int per_sm = 0, sms = 0;
+  };
+  static Cached cache;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (cache.device != dev || cache.smem != smem) {
+    auto kern = trace_kernel<ANY_HIT>;
+    if (smem > 48 * 1024) {
+      e = cudaFuncSetAttribute(kern,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+      if (e != cudaSuccess) return e;
+    }
+    Cached c;
+    c.device = dev;
+    c.smem = smem;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&c.per_sm, kern,
+                                                      THREADS, smem);
+    if (e != cudaSuccess) return e;
+    e = cudaDeviceGetAttribute(&c.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    if (c.per_sm == 0) return cudaErrorInvalidConfiguration;
+    cache = c;
+  }
+  *per_sm = cache.per_sm;
+  *sms = cache.sms;
+  return cudaSuccess;
+}
+
+template <bool ANY_HIT>
+int launch(const Rays& q, const Tables& tab, const World& w,
+           const Record& out, int* next_chunk, cudaStream_t stream) {
+  const size_t smem = staged_bytes(w.X, w.Z);
+  int per_sm = 0, sms = 0;
+  cudaError_t e = occupancy<ANY_HIT>(smem, &per_sm, &sms);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // the blocks the card holds at once, no more than the chunks need
+  const int want = rtvb::blocks_for(q.n_chunks, WARPS);
+  const int grid = per_sm * sms < want ? per_sm * sms : want;
+  trace_kernel<ANY_HIT><<<grid, THREADS, smem, stream>>>(q, tab, w, out,
+                                                         next_chunk);
+  return rtvb::launch_status();
 }
 
 }  // namespace
 
+// width > 0: the n rays form an image of rows `width` wide (n / width
+// rows), taken in 8×4 tiles; width 0: in runs of 32 consecutive rays.
+// next_chunk: one zeroed int32 on the device.
 RTVB_EXPORT int rtvb_trace(
     const float* ox, const float* oy, const float* oz, const float* dx,
-    const float* dy, const float* dz, const float* tcap, int n,
+    const float* dy, const float* dz, const float* tcap, int n, int width,
     const int* colmask, const int* df, const int* maxh, const int* schema,
     const int* exc_mask, const int* exc_key, const int* exc_id,
     const int* b2m, int n_exc, int n_b2m, int X, int Y, int Z,
     int super_size, int super_z, int max_steps, int maxh_max, int any_hit,
     int* hit, float* t, int* ix, int* iy, int* iz, float* nx, float* ny,
-    float* nz, int* mi, void* stream) {
+    float* nz, int* mi, int* next_chunk, void* stream) {
+  if (n == 0) return 0;
+  if (width < 0 || (width > 0 && n % width != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   int sl = 0;
   while ((1 << sl) < super_size) ++sl;
   World w{X, Y, Z, super_size, sl, super_z, max_steps, maxh_max, n_exc,
           n_b2m};
-  const int threads = 256;
-  const int n_cols = X * Z;
-  const size_t smem =
-      sizeof(int) * (static_cast<size_t>(n_cols) * (any_hit ? 1 : 2) + 256);
-  auto kern = any_hit ? trace_kernel<true> : trace_kernel<false>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+  Rays q{ox, oy, oz, dx, dy, dz, tcap, n, width, 0, 0};
+  if (width > 0) {
+    q.tiles_x = rtvb::blocks_for(width, TILE_W);
+    q.n_chunks = q.tiles_x * rtvb::blocks_for(n / width, TILE_H);
+  } else {
+    q.n_chunks = rtvb::blocks_for(n, 32);
   }
-  if (n == 0) return 0;
-  kern<<<rtvb::blocks_for(n, threads), threads, smem,
-         static_cast<cudaStream_t>(stream)>>>(
-      ox, oy, oz, dx, dy, dz, tcap, n, colmask, df, maxh, schema, exc_mask,
-      exc_key, exc_id, b2m, w, hit, t, ix, iy, iz, nx, ny, nz, mi);
-  return rtvb::launch_status();
+  Tables tab{colmask, df, maxh, schema, exc_mask, exc_key, exc_id, b2m};
+  Record out{hit, t, ix, iy, iz, nx, ny, nz, mi};
+  auto s = static_cast<cudaStream_t>(stream);
+  return any_hit ? launch<true>(q, tab, w, out, next_chunk, s)
+                 : launch<false>(q, tab, w, out, next_chunk, s);
+}
+
+// blocks of an instance that one SM holds at once for an X × Z world
+RTVB_EXPORT int rtvb_trace_blocks(int any_hit, int X, int Z, int* per_sm) {
+  int sms = 0;
+  const size_t smem = staged_bytes(X, Z);
+  return static_cast<int>(any_hit ? occupancy<true>(smem, per_sm, &sms)
+                                  : occupancy<false>(smem, per_sm, &sms));
 }

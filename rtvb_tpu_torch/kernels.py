@@ -39,14 +39,14 @@ I = ctypes.c_int
 F = ctypes.c_float
 
 
-def _sources() -> list[str]:
-    return sorted(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+def _sources(csrc_dir: str = CSRC_DIR) -> list[str]:
+    return sorted(os.path.join(csrc_dir, f) for f in os.listdir(csrc_dir)
                   if f.endswith((".cu", ".cuh")))
 
 
-def source_hash() -> str:
+def source_hash(csrc_dir: str = CSRC_DIR) -> str:
     h = hashlib.sha256()
-    for path in _sources():
+    for path in _sources(csrc_dir):
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())
@@ -64,10 +64,13 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-class _Library:
-    """The loaded shared library (built on first use)."""
+class Library:
+    """A shared library of the kernels in `csrc_dir`, built into
+    `build_dir` on first use and loaded."""
 
-    def __init__(self):
+    def __init__(self, csrc_dir: str = CSRC_DIR, build_dir: str = BUILD_DIR):
+        self.csrc_dir = csrc_dir
+        self.build_dir = build_dir
         self._lib = None
         self.build_seconds = None   # None: not built in this process
         self.build_log = None       # nvcc's output of this process's build
@@ -78,10 +81,10 @@ class _Library:
         return self._lib
 
     def _ensure_built(self) -> str:
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        out = os.path.join(BUILD_DIR, LIB_NAME)
+        os.makedirs(self.build_dir, exist_ok=True)
+        out = os.path.join(self.build_dir, LIB_NAME)
         stamp = out + ".hash"
-        want = source_hash()
+        want = source_hash(self.csrc_dir)
         if os.path.exists(out) and os.path.exists(stamp):
             with open(stamp) as f:
                 if f.read().strip() == want:
@@ -91,8 +94,9 @@ class _Library:
         nvcc = _nvcc()
         tag = f"{os.getpid()}.tmp"
         jobs = []
-        for src in (s for s in _sources() if s.endswith(".cu")):
-            obj = os.path.join(BUILD_DIR,
+        for src in (f for f in _sources(self.csrc_dir)
+                    if f.endswith(".cu")):
+            obj = os.path.join(self.build_dir,
                                os.path.basename(src)[:-3] + f".{tag}.o")
             cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
             jobs.append((cmd, obj, subprocess.Popen(
@@ -125,7 +129,7 @@ class _Library:
         return out
 
 
-LIBRARY = _Library()
+LIBRARY = Library()
 
 
 def as_input(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
@@ -183,6 +187,21 @@ class CudaKernel:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: "
                                f"cudaError {err}")
         self.launches += 1
+
+
+def query_int(device: torch.device, symbol: str, *args: int) -> int:
+    """Call a query of the library, `int symbol(int ..., int* out)`, on
+    `device` and return *out; raises on a nonzero CUDA error.  (Queries
+    launch nothing and count no launch.)"""
+    fn = getattr(LIBRARY.get(), symbol)
+    fn.argtypes = [I] * len(args) + [ctypes.POINTER(I)]
+    fn.restype = I
+    out = I(0)
+    with torch.cuda.device(device):
+        err = fn(*args, ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"{symbol} failed: cudaError {err}")
+    return out.value
 
 
 ALL: dict[str, CudaKernel] = {}

@@ -138,9 +138,12 @@ def material_index(tables: TraceTables, p: TraceParams, ix, iy, iz):
 
 
 def trace_plain(o, d, tables: TraceTables, p: TraceParams, t_cap=None,
-                any_hit: bool = False) -> HitRecord:
+                any_hit: bool = False, tally: list | None = None
+                ) -> HitRecord:
     """Plain PyTorch version of the trace (the JAX package's dda.trace with
-    the whole-array masked while loop, on any device)."""
+    the whole-array masked while loop, on any device).  `tally`, if given,
+    gets the count of live rays at the start of each sub-step (0-d
+    tensors)."""
     ox, oy, oz = o
     dx, dy, dz = d
     f32 = torch.float32
@@ -214,6 +217,8 @@ def trace_plain(o, d, tables: TraceTables, p: TraceParams, t_cap=None,
     def body():
         nonlocal t, ix, iz, tmax_x, tmax_z, alive, hit, last_axis
         nonlocal hit_t, hit_ix, hit_iy, hit_iz, hit_axis
+        if tally is not None:
+            tally.append(alive.sum())
         t0 = t
         t1 = torch.minimum(torch.minimum(tmax_x, tmax_z), t_exit)
         inb = (ix >= 0) & (ix < X) & (iz >= 0) & (iz < Z)
@@ -318,9 +323,24 @@ def trace_plain(o, d, tables: TraceTables, p: TraceParams, t_cap=None,
                      mi=mi)
 
 
+def substeps(o, d, tables: TraceTables, p: TraceParams, t_cap=None,
+             any_hit: bool = False) -> int:
+    """Sub-steps the march runs for these rays: the sum over the rays of
+    the column steps each is alive for (K1's loop trips), counted by the
+    plain version.  The work of a trace depends on this, not on the ray
+    count alone."""
+    tally: list = []
+    trace_plain(o, d, tables, p, t_cap, any_hit, tally)
+    return int(torch.stack(tally).sum()) if tally else 0
+
+
+# the rays form an image at least one 8×4 pixel tile large: K1 hands them
+# to its warps in such tiles, other shapes in runs of 32 rays
+TILE_W, TILE_H = 8, 4
+
 TRACE = K.register(K.CudaKernel(
     "trace", "rtvb_trace",
-    [K.P] * 7 + [K.I] + [K.P] * 8 + [K.I] * 10 + [K.P] * 9))
+    [K.P] * 7 + [K.I] * 2 + [K.P] * 8 + [K.I] * 10 + [K.P] * 10))
 
 
 def trace_cuda(o, d, tables: TraceTables, p: TraceParams, t_cap=None,
@@ -361,13 +381,23 @@ def trace_cuda(o, d, tables: TraceTables, p: TraceParams, t_cap=None,
                 torch.empty(shape, **i32), torch.empty(shape, **f32),
                 torch.empty(shape, **f32), torch.empty(shape, **f32),
                 torch.empty(shape, **i32)]
-    TRACE.launch(dev, *rays, t_cap, n, *tabs, n_exc,
+    image = len(shape) == 2 and shape[0] >= TILE_H and shape[1] >= TILE_W
+    width = shape[1] if image else 0
+    next_chunk = torch.zeros(1, **i32)      # the warps' chunk counter
+    TRACE.launch(dev, *rays, t_cap, n, width, *tabs, n_exc,
                  tabs[7].shape[0], p.x, p.y, p.z, p.super_size, p.super_z,
-                 p.max_steps, tables.maxh_max, int(any_hit), *outs)
+                 p.max_steps, tables.maxh_max, int(any_hit), *outs,
+                 next_chunk)
     if any_hit:
         return HitRecord(hit=hit != 0, t=t, ix=None, iy=None, iz=None,
                          nx=None, ny=None, nz=None, mi=None)
     return HitRecord(hit != 0, *outs[1:])
+
+
+def resident_blocks(p: TraceParams, any_hit: bool, device) -> int:
+    """Blocks of K1 that one SM of `device` holds at once for this world
+    (K1 launches that many blocks on every SM, or fewer for few rays)."""
+    return K.query_int(device, "rtvb_trace_blocks", int(any_hit), p.x, p.z)
 
 
 def trace(o, d, tables: TraceTables, p: TraceParams, t_cap=None,

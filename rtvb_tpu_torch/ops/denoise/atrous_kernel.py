@@ -1,9 +1,10 @@
 """À-trous pass dispatch (port of rtvb_tpu/ops/denoise/atrous_kernel.py).
 
-CUDA tensors launch ``csrc/atrous_kernel.cu`` (K6): one thread per pixel,
-edge-clamped taps at any step (no halo limit, so no fallback pass), the
-same weight formulas op for op as `passes.atrous_pass_plain`, which CPU
-tensors run.
+CUDA tensors launch ``csrc/atrous_kernel.cu`` (K6): 32×8-pixel blocks that
+stage their stencil window (contiguous up to step 4, a sub-lattice of one
+residue class mod the step above) in shared memory, edge-clamped, at any
+step (so no fallback pass), with the same weight formulas op for op as
+`passes.atrous_pass_plain`, which CPU tensors run.
 """
 from __future__ import annotations
 
@@ -33,6 +34,11 @@ def _atrous_cuda(illum, var, depth, normal, step, phi_lum, phi_normal,
     ATROUS.launch(dev, *args, H, W, int(step), float(phi_lum),
                   float(phi_depth), n_pow, out, out_var)
     return out, out_var
+
+
+def resident_blocks(step: int, device) -> int:
+    """Blocks of K6 that one SM of `device` holds at once at `step`."""
+    return K.query_int(device, "rtvb_atrous_blocks", int(step))
 
 
 def atrous_pass(illum, var, depth, normal, step: int, phi_lum: float,

@@ -4,7 +4,12 @@ GPU machine with:  python -m pytest tests/test_torch_gpu.py -m gpu
 
 Small shapes with ragged edges; K1, K2, K3 and K5 bit-exact (the library
 is built with --fmad=false, so every product rounds like the plain
-version's), K6 to 1e-5 relative; K4 on the six cases of chip_smoke.py
+version's), K6 to 1e-5 relative; K1 also at the frame's ray-wave shapes
+(its 8×4 pixel tiles), on ray counts that fill no whole 32-ray chunk and on
+an empty ray set; K6 also at every step 1-16 on a 1080p G-buffer, on an
+image smaller than one tile and on an odd size (its shared-memory windows,
+contiguous or on a sub-lattice, with clamped borders); K4 on the six cases
+of chip_smoke.py
 (the frame's own bounce inputs, synthetic lights, blue noise off, the
 generic instance, bounce 1 as the frame calls it) to its
 bar: the int outputs equal on ≥ 99.9% of pixels, the floats within 1e-5
@@ -39,15 +44,28 @@ def _bits_equal(a, b):
     return bool((a == b).all())
 
 
-def _rays(engine, seed):
+def _rays(engine, seed, shape=(90, 130)):
     g = torch.Generator().manual_seed(seed)
     dev = engine.device
-    o = torch.rand(3, 90, 130, generator=g) * torch.tensor([64.0, 20, 64])[
-        :, None, None]
-    d = torch.randn(3, 90, 130, generator=g)
-    d = d / d.norm(dim=0, keepdim=True)
+    o = torch.rand(3, *shape, generator=g) * torch.tensor(
+        [64.0, 20, 64]).reshape(3, *[1] * len(shape))
+    d = torch.randn(3, *shape, generator=g)
+    d = d / d.norm(dim=0, keepdim=True).clamp(min=1e-6)
     return (tuple(c.contiguous().to(dev) for c in o),
             tuple(c.contiguous().to(dev) for c in d))
+
+
+def _trace_both(engine, shape, any_hit, seed):
+    from rtvb_tpu_torch.ops import dda
+    o, d = _rays(engine, seed, shape)
+    g = torch.Generator().manual_seed(seed + 100)
+    cap = (torch.rand(shape, generator=g) * 60 + 0.5).to(engine.device)
+    a = dda.trace_cuda(o, d, engine._tables, engine._tp, cap, any_hit)
+    b = dda.trace_plain(o, d, engine._tables, engine._tp, cap, any_hit)
+    fields = ("hit", "t") if any_hit else dda.HitRecord._fields
+    for f in fields:
+        assert getattr(a, f).shape == shape, f
+        assert _bits_equal(getattr(a, f), getattr(b, f)), f
 
 
 @pytest.mark.parametrize("any_hit", [False, True])
@@ -61,6 +79,23 @@ def test_trace_kernel_matches_plain(engine, any_hit):
     fields = ("hit", "t") if any_hit else dda.HitRecord._fields
     for f in fields:
         assert _bits_equal(getattr(a, f), getattr(b, f)), f
+
+
+# the frame's ray waves: bounce 0 and its shadow rays at 1920×1080, the
+# half-res GI bounces at 960×540, their two shadow waves batched to 1080×960
+@pytest.mark.parametrize("shape", [(1080, 1920), (540, 960), (1080, 960)])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_trace_kernel_frame_shapes(engine, shape, any_hit):
+    _trace_both(engine, shape, any_hit, 7)
+
+
+# flat ray sets in runs of 32: one ray, a part chunk, a chunk and a part,
+# eight chunks and a part; an image one row short of a tile; no ray at all
+@pytest.mark.parametrize("shape", [(1,), (31,), (33,), (257,), (3, 50),
+                                   (0,)])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_trace_kernel_ragged_ray_sets(engine, shape, any_hit):
+    _trace_both(engine, shape, any_hit, 8)
 
 
 def test_tri_kernel_matches_plain(engine):
@@ -130,6 +165,48 @@ def test_atrous_kernel_matches_plain(cuda, step):
                                    64.0, 0.05)
     b = passes.atrous_pass_plain(illum, var, depth, normal, step, 2.0, 64.0,
                                  0.05)
+    for x, y in zip(a, b):
+        np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-7)
+
+
+@pytest.fixture(scope="module")
+def gbuffer_1080p(cuda):
+    """The 1080p frame's G-buffer planes as the denoiser hands them to K6,
+    with a random variance plane."""
+    from rtvb_tpu_torch.render.renderer import Engine, slice_settings
+    eng = Engine(settings=slice_settings(1920, 1080), device=cuda)
+    g, _ = eng.render_gbuffers()
+    var = torch.rand(g.depth.shape,
+                     generator=torch.Generator().manual_seed(9)) * 0.1
+    return (torch.stack(g.illum, dim=-1).contiguous(), var.to(cuda),
+            g.depth.contiguous(), torch.stack(g.normal, dim=-1).contiguous())
+
+
+def _atrous_inputs(H, W, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    illum = torch.rand(H, W, 3, generator=g)
+    var = torch.rand(H, W, generator=g) * 0.1
+    depth = 10 + 20 * torch.rand(H, W, generator=g)
+    depth[: H // 3, : W // 4] = 1e30
+    n = torch.randn(H, W, 3, generator=g) * 0.2
+    n[..., 1] += 1
+    normal = n / n.norm(dim=-1, keepdim=True)
+    return tuple(t.contiguous().to(device)
+                 for t in (illum, var, depth, normal))
+
+
+@pytest.mark.parametrize("step", list(range(1, 17)))
+@pytest.mark.parametrize("image", ["1080p", "7x13", "1919x1079"])
+def test_atrous_kernel_windows(cuda, gbuffer_1080p, image, step):
+    from rtvb_tpu_torch.ops.denoise import atrous_kernel, passes
+    if image == "1080p":
+        args = gbuffer_1080p
+    else:
+        W, H = map(int, image.split("x"))
+        args = _atrous_inputs(H, W, step, cuda)
+    a = atrous_kernel._atrous_cuda(*args, step, 2.0, 64.0, 0.05)
+    b = passes.atrous_pass_plain(*args, step, 2.0, 64.0, 0.05)
     for x, y in zip(a, b):
         np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(),
                                    rtol=1e-5, atol=1e-7)

@@ -60,7 +60,8 @@ def test_port_imports_no_jax():
 
 def _port_sources():
     pkg = os.path.join(ROOT, "rtvb_tpu_torch")
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"),
+           os.path.join(ROOT, "kernel_ab.py")]
     for d, _, files in os.walk(pkg):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)

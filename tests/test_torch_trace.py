@@ -142,3 +142,60 @@ def test_odd_step_cap_runs_one_extra_substep(world):
     pr = _port_trace(tables, tp7, o, d, None, False)
     np.testing.assert_array_equal(pr.hit.numpy(), np.asarray(jr.hit))
     np.testing.assert_array_equal(pr.iy.numpy(), np.asarray(jr.iy))
+
+
+def _pillar_world():
+    """A 64×32×64 world with a floor (y < 5) under every column and a
+    pillar to the top at z = 0 for every x: no column is empty and every
+    supercolumn along z < 8 reaches the top, so neither the distance field
+    nor the height envelope lets a ray at y = 10.5 skip a column there."""
+    from rtvb_tpu_torch.world import voxel as pvoxel
+    cfg = pvoxel.WorldConfig()
+    blocks = np.zeros((cfg.x, cfg.y, cfg.z), np.uint8)
+    blocks[:, :5, :] = 1
+    blocks[:, :, 0] = 1
+    schema = pvoxel.pack_schema(np.full(cfg.n_cols, 5), 5, 1, 1, 1)
+    world = pvoxel.build_tables(cfg, blocks, schema)
+    mats = type("M", (), {"block_to_mat": torch.zeros(2, dtype=torch.int32)})
+    return (pdda.trace_tables(world, mats),
+            pdda.trace_params(cfg, MAX_STEPS))
+
+
+def _one_ray(o, d):
+    return (tuple(torch.tensor([v], dtype=torch.float32) for v in o),
+            tuple(torch.tensor([v], dtype=torch.float32) for v in d))
+
+
+@pytest.mark.parametrize("cap,columns", [(None, 64), (20.0, 21)])
+def test_substeps_count_the_columns_crossed(cap, columns):
+    """An axis-aligned ray along +x at y = 10.5 above the floor crosses the
+    columns x = 0 … 63 one sub-step each (64), or x = 0 … 20 when capped at
+    t = 20 (the column it is in at the cap is the last)."""
+    tables, tp = _pillar_world()
+    o, d = _one_ray((0.5, 10.5, 2.5), (1.0, 0.0, 0.0))
+    t_cap = None if cap is None else torch.tensor([cap])
+    assert pdda.substeps(o, d, tables, tp, t_cap) == columns
+    assert not bool(pdda.trace(o, d, tables, tp, t_cap).hit[0])
+
+
+def test_substeps_zero_for_a_ray_that_misses_from_the_start():
+    tables, tp = _pillar_world()
+    o, d = _one_ray((-5.0, 10.0, 10.0), (-1.0, 0.0, 0.0))
+    assert pdda.substeps(o, d, tables, tp) == 0
+    assert pdda.substeps(o, d, tables, tp, any_hit=True) == 0
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_substeps_sum_over_the_rays(world, any_hit):
+    """A ray set's count is the sum of its rays' counts, one ray at a time."""
+    cfg, jw, tables, tp, b2m = world
+    o, d = _rays(5, 64, "random")
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).reshape(-1)
+    o, d = tuple(T(a) for a in o), tuple(T(a) for a in d)
+    ptp = pdda.TraceParams(*tp)
+    total = pdda.substeps(o, d, tables, ptp, any_hit=any_hit)
+    each = [pdda.substeps(tuple(a[i:i + 1] for a in o),
+                          tuple(a[i:i + 1] for a in d), tables, ptp,
+                          any_hit=any_hit) for i in range(64)]
+    assert total == sum(each)
+    assert 64 < total < 64 * MAX_STEPS
