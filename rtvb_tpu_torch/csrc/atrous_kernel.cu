@@ -33,26 +33,54 @@ namespace {
 constexpr int TX = 32, TY = 8;            // a block's tile (lattice points)
 constexpr int PLANES = 9;
 constexpr size_t WINDOW_BUDGET = 48 * 1024;
+// the shipped phi_normal (64 = 2^6) gets an instance with its squarings
+// unrolled; other powers of two run the same squarings in a loop
+constexpr int SHIPPED_SQUARINGS = 6;
 
 __constant__ float W1D[3] = {0.375f, 0.25f, 0.0625f};
 
-constexpr size_t window_bytes(int halo) {
-  return sizeof(float) * PLANES * (TX + 2 * halo) * (TY + 2 * halo);
+__host__ __device__ constexpr int iabs(int v) { return v < 0 ? -v : v; }
+
+// shared bytes of a window with halos of hy rows and hx columns a side
+constexpr size_t window_bytes(int hy, int hx) {
+  return sizeof(float) * PLANES * (TY + 2 * static_cast<size_t>(hy)) *
+         (TX + 2 * static_cast<size_t>(hx));
 }
 
-// The block's pixels are (ry + lat·ly, rx + lat·lx) over a 32×8 tile of
-// lattice points (ly, lx) of the residue class (ry, rx); taps are g
-// lattice points apart (lat · g = step).
+// Where a pass at `step` puts its blocks.  Rows: a block's 8 rows are the
+// rows of one residue class mod |step| (taps 1 row apart on that lattice:
+// the halo is 2 rows at any step, and every window row is a coalesced
+// segment).  Columns: 32 consecutive ones with a halo of 2·|step| where the
+// window fits the budget (steps ≤ 16), else those of one residue class too.
+struct Layout {
+  int lat_y, lat_x;   // lattice strides
+  int g_y, g_x;       // tap spacing on the lattice (lat · g = step)
+};
+
+Layout layout(int step) {
+  const int s_abs = iabs(step);
+  const int sign = step < 0 ? -1 : 1;
+  Layout l{s_abs > 0 ? s_abs : 1, 1, step == 0 ? 0 : sign, step};
+  if (window_bytes(2 * (l.g_y != 0), 2 * s_abs) > WINDOW_BUDGET) {
+    l.lat_x = s_abs;
+    l.g_x = sign;
+  }
+  return l;
+}
+
+// The block's pixels are (ry + lat_y·ly, rx + lat_x·lx) over a 32×8 tile
+// of lattice points (ly, lx) of the residue class (ry, rx).
+template <int NSQ>
 __global__ void __launch_bounds__(TX * TY)
 atrous_kernel(const float* __restrict__ illum, const float* __restrict__ var,
               const float* __restrict__ depth,
-              const float* __restrict__ normal, int H, int W, int lat, int g,
-              int tiles_x, int res_x, float phi_lum, float phi_depth,
+              const float* __restrict__ normal, int H, int W, Layout l,
+              int tiles_x, int tiles_y, float phi_lum, float phi_depth,
               int n_squarings, float* __restrict__ out,
               float* __restrict__ out_var) {
   extern __shared__ float win[];
-  const int ga = abs(g);
-  const int WW = TX + 4 * ga, WH = TY + 4 * ga, WN = WW * WH;
+  const int hy = 2 * iabs(l.g_y), hx = 2 * iabs(l.g_x);   // halos
+  const int WW = TX + 2 * hx, WH = TY + 2 * hy, WN = WW * WH;
   float* s_r = win;
   float* s_g = s_r + WN;
   float* s_b = s_g + WN;
@@ -63,14 +91,13 @@ atrous_kernel(const float* __restrict__ illum, const float* __restrict__ var,
   float* s_nz = s_ny + WN;
   float* s_l = s_nz + WN;
 
-  const int res = blockIdx.x / tiles_x;
-  const int ry = res / res_x, rx = res % res_x;
-  const int lx0 = (blockIdx.x % tiles_x) * TX - 2 * ga;   // window origin
-  const int ly0 = blockIdx.y * TY - 2 * ga;
+  const int rx = blockIdx.x / tiles_x, ry = blockIdx.y / tiles_y;
+  const int lx0 = (blockIdx.x % tiles_x) * TX - hx;   // window origin
+  const int ly0 = (blockIdx.y % tiles_y) * TY - hy;
   for (int wy = threadIdx.y; wy < WH; wy += TY) {
-    const int py = rtvb::clampi(ry + lat * (ly0 + wy), 0, H - 1);
+    const int py = rtvb::clampi(ry + l.lat_y * (ly0 + wy), 0, H - 1);
     for (int wx = threadIdx.x; wx < WW; wx += TX) {
-      const int px = rtvb::clampi(rx + lat * (lx0 + wx), 0, W - 1);
+      const int px = rtvb::clampi(rx + l.lat_x * (lx0 + wx), 0, W - 1);
       const int p = py * W + px;
       const int i = wy * WW + wx;
       const float r = illum[3 * p], gg = illum[3 * p + 1],
@@ -88,10 +115,11 @@ atrous_kernel(const float* __restrict__ illum, const float* __restrict__ var,
   }
   __syncthreads();
 
-  const int y = ry + lat * (ly0 + 2 * ga + static_cast<int>(threadIdx.y));
-  const int x = rx + lat * (lx0 + 2 * ga + static_cast<int>(threadIdx.x));
+  const int ty = threadIdx.y, tx = threadIdx.x;
+  const int y = ry + l.lat_y * (ly0 + hy + ty);
+  const int x = rx + l.lat_x * (lx0 + hx + tx);
   if (y >= H || x >= W) return;
-  const int c = (threadIdx.y + 2 * ga) * WW + threadIdx.x + 2 * ga;
+  const int c = (ty + hy) * WW + tx + hx;
   const float r = s_r[c], gg = s_g[c], b = s_b[c];
   const float v = s_v[c];
   const float d = s_d[c];
@@ -103,6 +131,7 @@ atrous_kernel(const float* __restrict__ illum, const float* __restrict__ var,
   float acc_v = v * 0.019775390625f;          // w0²
   float wsum = w0;
   const float d_ref = phi_depth * fmaxf(d, 1.0f);
+  const int n_sq = NSQ >= 0 ? NSQ : n_squarings;
 #pragma unroll
   for (int dy = -2; dy <= 2; ++dy) {
 #pragma unroll
@@ -110,15 +139,16 @@ atrous_kernel(const float* __restrict__ illum, const float* __restrict__ var,
       if (dy == 0 && dx == 0) continue;
       const float wk = W1D[abs(dy)] * W1D[abs(dx)];
       // shift(img, oy, ox)[y, x] = img[clamp(y - oy), clamp(x - ox)]:
-      // the window texel g·(dy, dx) lattice points back
-      const int q = c - (dy * WW + dx) * g;
+      // the window texel (dy·g_y, dx·g_x) lattice points back
+      const int q = c - dy * l.g_y * WW - dx * l.g_x;
       const float qr = s_r[q], qg = s_g[q], qb = s_b[q];
       const float qd = s_d[q];
       const float n_lum = s_l[q];
       const float e_z = fabsf(qd - d) /
                         (d_ref * static_cast<float>(max(abs(dy) + abs(dx), 1)));
       float w_n = fmaxf(s_nx[q] * nx + s_ny[q] * ny + s_nz[q] * nz, 0.0f);
-      for (int k = 0; k < n_squarings; ++k) w_n = w_n * w_n;
+#pragma unroll
+      for (int k = 0; k < n_sq; ++k) w_n = w_n * w_n;
       const float e_l = fabsf(n_lum - lum_c) / sigma_l;
       float w = wk * expf(-(e_z + e_l)) * w_n;
       if (qd >= rtvb::BIG || d >= rtvb::BIG) w = 0.0f;
@@ -137,18 +167,24 @@ atrous_kernel(const float* __restrict__ illum, const float* __restrict__ var,
   out_var[p] = acc_v * inv * inv;
 }
 
-// the shape of a pass at `step`: lattice stride and tap spacing on it
-void layout(int step, int* lat, int* g) {
-  // a contiguous window (lattice 1, taps `step` apart) where it fits the
-  // budget, else the residue classes mod |step| (taps 1 lattice point
-  // apart, in the step's direction)
-  const int s_abs = step < 0 ? -step : step;
-  *lat = 1;
-  *g = step;
-  if (window_bytes(2 * s_abs) > WINDOW_BUDGET) {
-    *lat = s_abs;
-    *g = step < 0 ? -1 : 1;
-  }
+// the grid of a pass: (32-column tiles × residue classes of the columns,
+// 8-row tiles × residue classes of the rows); the classes past the image
+// (a lattice coarser than the image) hold no pixel and get no block
+bool grid_of(const Layout& l, int H, int W, int* tiles_x, int* tiles_y,
+             dim3* grid) {
+  *tiles_x = rtvb::blocks_for(rtvb::blocks_for(W, l.lat_x), TX);
+  *tiles_y = rtvb::blocks_for(rtvb::blocks_for(H, l.lat_y), TY);
+  const long long gx = static_cast<long long>(*tiles_x) *
+                       (l.lat_x < W ? l.lat_x : W);
+  const long long gy = static_cast<long long>(*tiles_y) *
+                       (l.lat_y < H ? l.lat_y : H);
+  if (gx > 0x7FFFFFFFLL || gy > 65535) return false;
+  *grid = dim3(static_cast<unsigned>(gx), static_cast<unsigned>(gy));
+  return true;
+}
+
+size_t layout_bytes(const Layout& l) {
+  return window_bytes(2 * iabs(l.g_y), 2 * iabs(l.g_x));
 }
 
 }  // namespace
@@ -161,27 +197,25 @@ RTVB_EXPORT int rtvb_atrous(const float* illum, const float* var,
   if (H == 0 || W == 0) return 0;
   int n_squarings = 0;             // phi_normal = 2^n_squarings
   while ((1 << n_squarings) < n_pow) ++n_squarings;
-  int lat = 1, g = 1;
-  layout(step, &lat, &g);
-  const int ga = g < 0 ? -g : g;
-  const int res_y = lat < H ? lat : H;     // the non-empty residue classes
-  const int res_x = lat < W ? lat : W;
-  const int tiles_x = rtvb::blocks_for(rtvb::blocks_for(W, lat), TX);
-  const int tiles_y = rtvb::blocks_for(rtvb::blocks_for(H, lat), TY);
-  const long long gx = static_cast<long long>(tiles_x) * res_y * res_x;
-  if (gx > 0x7FFFFFFFLL || tiles_y > 65535)
+  const Layout l = layout(step);
+  int tiles_x = 0, tiles_y = 0;
+  dim3 grid;
+  if (!grid_of(l, H, W, &tiles_x, &tiles_y, &grid))
     return static_cast<int>(cudaErrorInvalidConfiguration);
-  atrous_kernel<<<dim3(static_cast<unsigned>(gx), tiles_y), dim3(TX, TY),
-                  window_bytes(2 * ga), static_cast<cudaStream_t>(stream)>>>(
-      illum, var, depth, normal, H, W, lat, g, tiles_x, res_x, phi_lum,
+  auto kern = n_squarings == SHIPPED_SQUARINGS
+                  ? atrous_kernel<SHIPPED_SQUARINGS>
+                  : atrous_kernel<-1>;
+  kern<<<grid, dim3(TX, TY), layout_bytes(l),
+         static_cast<cudaStream_t>(stream)>>>(
+      illum, var, depth, normal, H, W, l, tiles_x, tiles_y, phi_lum,
       phi_depth, n_squarings, out, out_var);
   return rtvb::launch_status();
 }
 
-// blocks that one SM holds at once for a pass at `step`
+// blocks that one SM holds at once for a pass at `step` (shipped
+// phi_normal)
 RTVB_EXPORT int rtvb_atrous_blocks(int step, int* per_sm) {
-  int lat = 1, g = 1;
-  layout(step, &lat, &g);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, atrous_kernel, TX * TY, window_bytes(2 * (g < 0 ? -g : g))));
+      per_sm, atrous_kernel<SHIPPED_SQUARINGS>, TX * TY,
+      layout_bytes(layout(step))));
 }

@@ -285,11 +285,13 @@ trace_kernel(Rays q, Tables tab, World w, Record out,
   }
   __syncthreads();
 
-  // chunks in a grid-stride walk: warp k of the grid takes k, k + warps, …
+  // a warp takes the next chunk from the counter when its 32 rays are done
   const int lane = threadIdx.x & 31;
-  const int warps = gridDim.x * WARPS;
-  for (int chunk = blockIdx.x * WARPS + (threadIdx.x >> 5);
-       chunk < q.n_chunks; chunk += warps) {
+  for (;;) {
+    int chunk = 0;
+    if (lane == 0) chunk = atomicAdd(next_chunk, 1);
+    chunk = __shfl_sync(0xFFFFFFFFu, chunk, 0);
+    if (chunk >= q.n_chunks) return;
     const int r = ray_of(q, chunk, lane);
     if (r >= 0) trace_ray<ANY_HIT>(r, q, w, tab, colmask, df, maxh, out);
   }
