@@ -273,7 +273,9 @@ __global__ void __launch_bounds__(THREADS)
 trace_kernel(Rays q, Tables tab, World w, Record out,
              int* __restrict__ next_chunk) {
   extern __shared__ int smem[];
+  __shared__ int next;        // the block's next chunk, counted in its share
   const int n_cols = w.X * w.Z;
+  if (threadIdx.x == 0) next = 0;
   uint32_t* colmask = reinterpret_cast<uint32_t*>(smem);
   int* df = smem + n_cols;
   int* maxh = df + SLOTS;
@@ -285,12 +287,14 @@ trace_kernel(Rays q, Tables tab, World w, Record out,
   }
   __syncthreads();
 
-  // a warp takes the next chunk from the counter when its 32 rays are done
+  // block b's share is chunks b, b + grid, b + 2·grid, …: a warp takes
+  // the share's next chunk when its 32 rays are done
   const int lane = threadIdx.x & 31;
   for (;;) {
-    int chunk = 0;
-    if (lane == 0) chunk = atomicAdd(next_chunk, 1);
-    chunk = __shfl_sync(0xFFFFFFFFu, chunk, 0);
+    int k = 0;
+    if (lane == 0) k = atomicAdd(&next, 1);
+    k = __shfl_sync(0xFFFFFFFFu, k, 0);
+    const int chunk = blockIdx.x + k * gridDim.x;
     if (chunk >= q.n_chunks) return;
     const int r = ray_of(q, chunk, lane);
     if (r >= 0) trace_ray<ANY_HIT>(r, q, w, tab, colmask, df, maxh, out);
