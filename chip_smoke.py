@@ -5,14 +5,24 @@
 1. builds the hand-written CUDA kernels from rtvb_tpu_torch/csrc (one nvcc
    per source, all started together);
 2. holds each kernel against its plain PyTorch version on the same CUDA
-   inputs at the shapes the 1080p frame gives it (error, CUDA-event times,
-   the card's bound for the same work, a one-call PyTorch yardstick where
-   one exists); K4 (fused shade) on the frame's own bounce-0 and bounce-1
-   inputs: (a) as the frame calls it, (b) with a synthetic 200-slot light
-   table, 8 candidates, 3 taps and entity MIS, (c) at 960×540 with 2
-   candidates and no taps, (d) with blue noise off, (e) with 5 candidates
-   and 2 taps (the kernel's generic instance), (f) bounce 1 as the frame
-   calls it (the instance that also runs bounce 2);
+   inputs at the shapes the 1080p frame gives it (error, CUDA-event times
+   of the card's work with a spin kernel queued ahead so the host's launch
+   latency stays out, the card's bound for the same work, a one-call
+   PyTorch yardstick where one exists); K1 (trace) on the frame's own five
+   ray waves as captured from a frame (closest hit at bounces 0-2, any hit
+   on bounce 0's shadow rays and on bounces 1-2's batched), random rays at
+   the GI shapes and sun shadow rays, its bound counting the sub-steps
+   these rays march (the plain version's tally); K6 (à-trous) on the
+   frame's own four passes (steps 1, 2, 4, 8) and at step 16; a frame's
+   time of K1, K4 and K6 summed from the launches the frame makes; K5
+   nearest against grid_sample in 7 rounds of 20 calls, the order reversed
+   every round; registers and spills from the ptxas report and K1's and
+   K6's resident blocks an SM; K4 (fused shade) on the frame's own
+   bounce-0 and bounce-1 inputs: (a) as the frame calls it, (b) with a
+   synthetic 200-slot light table, 8 candidates, 3 taps and entity MIS,
+   (c) at 960×540 with 2 candidates and no taps, (d) with blue noise off,
+   (e) with 5 candidates and 2 taps (the kernel's generic instance), (f)
+   bounce 1 as the frame calls it (the instance that also runs bounce 2);
 3. drives the main path — Engine(device="cuda") with the shipped
    Settings() at 1920×1080 (fused shading, native resolution) — through
    warm-up and timed frames, every kernel's launch counter reset just
@@ -347,13 +357,13 @@ ATROUS_PIXEL_OPS = 24 * 39 + 15
 
 
 def trace_work(eng, o, d, cap, any_hit, tab_bytes):
-    """(bytes, ops) of one K1 launch: rays in (+ the cap), the record out
-    (hit + t, or the whole closest-hit record: t, voxel, normal, material),
-    the tables; the set-up per ray and the sub-steps these rays run, from
-    the plain version's count."""
+    """(bytes, ops, sub-steps) of one K1 launch: the rays and their cap
+    in, the record out (hit and t, or the whole closest-hit record: hit, t,
+    voxel, normal, material), the tables; the set-up per ray and the
+    sub-steps these rays run, from the plain version's count."""
     from rtvb_tpu_torch.ops import dda
     n_rays = o[0].numel()
-    per = 24 + (4 if cap is not None else 0) + (4 + 4 if any_hit else 36)
+    per = 28 + (8 if any_hit else 36)
     n_sub = dda.substeps(o, d, eng._tables, eng._tp, cap, any_hit)
     return (n_rays * per + tab_bytes,
             TRACE_SETUP_OPS[any_hit] * n_rays + TRACE_SUBSTEP_OPS * n_sub,

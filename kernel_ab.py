@@ -2,20 +2,19 @@
 turns on one GPU, at chip_smoke.py's cases (the 1080p frame's own K1 waves
 and K6 steps, and its extra K1 rays and K6 step).
 
-    python3 kernel_ab.py [--legacy DIR] [--variant LABEL=DIR ...]
+    python3 kernel_ab.py --variant LABEL=DIR [--variant LABEL=DIR ...]
 
 Each DIR holds trace_kernel.cu, atrous_kernel.cu and the headers they
 include, as of another commit C, written with
     git show C:rtvb_tpu_torch/csrc/<file> > DIR/<file>
-`--legacy DIR`: sources whose rtvb_trace takes neither a row width nor a
-chunk counter (the one-block-per-256-rays kernel); `--variant LABEL=DIR`:
-sources with this checkout's C interfaces.  Each is built with the
-package's nvcc flags into a temporary directory.  For every case the
-builds run in turns (`chip_smoke.timed_rounds`: rounds of 20 calls each,
-the order reversed every round) after their outputs are held against this
-checkout's bit for bit.  The medians go to stdout and, with every round,
-to chiprun_out/kernel_ab.json; nvcc's register / spill report of each
-build to chiprun_out/kernel_ab_ptxas.log.
+and with this checkout's C interfaces of rtvb_trace and rtvb_atrous.  Each
+is built with the package's nvcc flags into a temporary directory, and its
+entry points take the place of this checkout's for its turns.  For every
+case the builds run in turns (`chip_smoke.timed_rounds`: rounds of 20
+calls each, the order reversed every round) after their outputs are held
+against this checkout's bit for bit.  The medians go to stdout and, with
+every round, to chiprun_out/kernel_ab.json; nvcc's register / spill report
+of each build to chiprun_out/kernel_ab_ptxas.log.
 """
 from __future__ import annotations
 
@@ -31,42 +30,6 @@ import tempfile
 import traceback
 
 import chip_smoke as S
-
-LEGACY_TRACE_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int]
-                     + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
-                     + [ctypes.c_void_p] * 10)
-
-
-def legacy_trace(fn, o, d, tables, tp, t_cap, any_hit):
-    """rtvb_trace of the legacy interface, called like dda.trace_cuda."""
-    import torch
-    from rtvb_tpu_torch.ops import dda
-    shape, dev = o[0].shape, o[0].device
-    if t_cap is None:
-        t_cap = torch.full(shape, dda.BIG, dtype=torch.float32, device=dev)
-    i32 = dict(dtype=torch.int32, device=dev)
-    f32 = dict(dtype=torch.float32, device=dev)
-    hit, t = torch.empty(shape, **i32), torch.empty(shape, **f32)
-    outs = [hit, t] + ([None] * 7 if any_hit else [
-        torch.empty(shape, **i32), torch.empty(shape, **i32),
-        torch.empty(shape, **i32), torch.empty(shape, **f32),
-        torch.empty(shape, **f32), torch.empty(shape, **f32),
-        torch.empty(shape, **i32)])
-    tabs = [tables.colmask, tables.df, tables.maxh, tables.schema,
-            tables.exc_mask, tables.exc_key, tables.exc_id,
-            tables.block_to_mat]
-
-    def ptr(x):
-        return None if x is None else x.data_ptr()
-    err = fn(*map(ptr, (*o, *d, t_cap)), o[0].numel(), *map(ptr, tabs),
-             tables.exc_key.shape[0], tables.block_to_mat.shape[0], tp.x,
-             tp.y, tp.z, tp.super_size, tp.super_z, tp.max_steps,
-             tables.maxh_max, int(any_hit), *map(ptr, outs),
-             torch.cuda.current_stream(dev).cuda_stream)
-    S.check(err == 0, f"legacy rtvb_trace: cudaError {err}")
-    if any_hit:
-        return dda.HitRecord(hit != 0, t, *[None] * 7)
-    return dda.HitRecord(hit != 0, *outs[1:])
 
 
 @contextlib.contextmanager
@@ -91,20 +54,14 @@ def same_bits(a, b, label):
             continue
         if x.dtype == torch.float32:
             x, y = x.view(torch.int32), y.view(torch.int32)
-        S.check(bool((x.reshape(-1) == y.reshape(-1)).all()),
-                f"{label}: outputs differ")
+        S.check(bool((x == y).all()), f"{label}: outputs differ")
 
 
 def main() -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--legacy", help="sources of the legacy interface")
-    ap.add_argument("--variant", action="append", default=[],
-                    help="LABEL=DIR, sources of this checkout's interface")
-    ap.add_argument("--rows", action="store_true",
-                    help="also this checkout's K1 on the same rays as a "
-                         "flat set (32 consecutive rays a warp, not 8×4 "
-                         "pixel tiles)")
+    ap.add_argument("--variant", action="append", required=True,
+                    help="LABEL=DIR")
     ap.add_argument("--rounds", type=int, default=7)
     ap.add_argument("--runs", type=int, default=20)
     args = ap.parse_args()
@@ -120,16 +77,15 @@ def main() -> int:
     card = S.card_line()
     S.log(card)
     os.makedirs(S.LOG_DIR, exist_ok=True)
-    builds = {}                 # label → (CDLL, legacy interface)
     K.LIBRARY.get()
     logs = [f"# this checkout\n{K.LIBRARY.build_log or ''}"]
+    sources = dict(v.split("=", 1) for v in args.variant)
+    builds = {}                 # label → CDLL
     tmp = tempfile.mkdtemp(prefix="rtvb_kernel_ab_")
     try:
-        others = ([("legacy", args.legacy, True)] if args.legacy else []) \
-            + [(*v.split("=", 1), False) for v in args.variant]
-        for label, src, legacy in others:
+        for label, src in sources.items():
             lib = K.Library(os.path.abspath(src), os.path.join(tmp, label))
-            builds[label] = (lib.get(), legacy)
+            builds[label] = lib.get()
             logs.append(f"# {label} ({src})\n{lib.build_log}")
         with open(os.path.join(S.LOG_DIR, "kernel_ab_ptxas.log"), "w") as f:
             f.write("\n".join(logs))
@@ -140,52 +96,30 @@ def main() -> int:
         eng.render_realtime_device()
         traces, atrous = S.capture_frame_calls(eng)
         tables, tp = eng._tables, eng._tp
-        results = {}
 
-        def trace_fn(label, a):
+        def on(label, handle, run):
+            """`run` on the build `label` ("current": this checkout)."""
             if label == "current":
-                return lambda: dda.trace_cuda(a[0], a[1], tables, tp, a[2],
-                                              a[3])
-            if label == "rows":
-                def flat(v):
-                    return None if v is None else v.reshape(-1)
-                fo, fd = tuple(map(flat, a[0])), tuple(map(flat, a[1]))
-                fc = flat(a[2])
-                return lambda: dda.trace_cuda(fo, fd, tables, tp, fc, a[3])
-            lib, legacy = builds[label]
-            if legacy:
-                fn = lib.rtvb_trace
-                fn.argtypes = LEGACY_TRACE_ARGS
-                fn.restype = ctypes.c_int
-                return lambda: legacy_trace(fn, a[0], a[1], tables, tp, a[2],
-                                            a[3])
-
-            def run():
-                with using(dda.TRACE, lib):
-                    return dda.trace_cuda(a[0], a[1], tables, tp, a[2], a[3])
-            return run
-
-        def atrous_fn(label, a):
-            def run():
-                return atrous_kernel._atrous_cuda(*a[:5], *a[5])
-            if label in ("current", "rows"):
                 return run
 
             def run_other():
-                with using(atrous_kernel.ATROUS, builds[label][0]):
+                with using(handle, builds[label]):
                     return run()
             return run_other
 
-        cases = [("trace", k, v, trace_fn)
+        cases = [("trace", dda.TRACE, k,
+                  lambda a=v: dda.trace_cuda(a[0], a[1], tables, tp, a[2],
+                                             a[3]))
                  for k, v in S.trace_inputs(eng, traces).items()]
-        cases += [("atrous", k, v, atrous_fn)
+        cases += [("atrous", atrous_kernel.ATROUS, k,
+                   lambda a=v: atrous_kernel._atrous_cuda(*a[:5], *a[5]))
                   for k, v in S.atrous_inputs(eng, atrous).items()]
-        labels = ["current", *(["rows"] if args.rows else []), *builds]
-        for kernel, case, a, make in cases:
-            fns = {label: make(label, a) for label in labels
-                   if not (kernel == "atrous" and label == "rows")}
+        labels = ["current", *builds]
+        results = {}
+        for kernel, handle, case, run in cases:
+            fns = {label: on(label, handle, run) for label in labels}
             ref = fns["current"]()
-            for label in list(fns)[1:]:
+            for label in builds:
                 same_bits(ref, fns[label](), f"{kernel} {case} {label}")
             t = S.timed_rounds(fns, args.rounds, args.runs)
             med = {k: statistics.median(v) for k, v in t.items()}
@@ -197,15 +131,13 @@ def main() -> int:
             frame = [r["median_ms"] for k, r in results.items()
                      if k.startswith(f"{kernel} | frame")]
             sums[kernel] = {label: sum(m[label] for m in frame)
-                            for label in frame[0]}
+                            for label in labels}
             S.log(f"{kernel} a frame (its frame cases): " + "  ".join(
                 f"{k} {v:.4f}" for k, v in sums[kernel].items()) + " ms")
         with open(os.path.join(S.LOG_DIR, "kernel_ab.json"), "w") as f:
-            json.dump(dict(card=card, builds={k: v for k, (_, v) in
-                                              builds.items()},
-                           sources=dict((lb, src) for lb, src, _ in others),
-                           rounds=args.rounds, runs=args.runs,
-                           cases=results, per_frame=sums), f, indent=1)
+            json.dump(dict(card=card, sources=sources, rounds=args.rounds,
+                           runs=args.runs, cases=results, per_frame=sums),
+                      f, indent=1)
         S.log(card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

@@ -7,23 +7,28 @@
 // the XLA fallback the TPU path used above MAX_STEP = 8.  Plain version:
 // rtvb_tpu_torch/ops/denoise/passes.py `atrous_pass_plain`.
 //
-// What bounds it on Hopper: each pixel reads 25 taps of 9 values (colour,
-// variance, depth, normal and the tap's luminance) and spends ≈ 60
-// instructions on each of its 24 weights, two IEEE divisions and an expf
-// among them.  Fetched straight from global memory, the taps cost ≈ 5 L2
-// reads of every input at step 1 and more at wider steps.  Design, like
-// the TPU kernel's VMEM window:
-// - a 32×8 block stages its stencil window once, with coalesced loads,
-//   into shared memory as nine planes (r, g, b, var, depth, nx, ny, nz and
+// What bounds it on Hopper: arithmetic.  A pixel reads 25 taps of 9 values
+// (colour, variance, depth, normal and the tap's luminance), 32 bytes of
+// it from memory, and spends ≈ 75 instructions on each of its 24 weights:
+// two IEEE divisions (a reciprocal, six FMAs and a range check each), an
+// accurate expf and six squarings among them.  The taps themselves are
+// not what costs: fetched straight from global memory at 256 pixels of one
+// row a block, they were served by L1 and L2, and the loads were never the
+// limit.  Design:
+// - a 32×8 block stages its stencil window once, with coalesced loads, in
+//   shared memory as nine planes (r, g, b, var, depth, nx, ny, nz and
 //   luminance, computed once per texel with the same rtvb::luminance), and
 //   runs all 25 taps from there, conflict-free;
-// - the window is the tile plus a halo of 2·step (36×12 texels at step 1,
-//   48×24 at step 4: ≤ 41.5 KB).  Where that would pass 48 KB (steps ≥ 8),
-//   the block takes a 32×8 tile of the sub-lattice of one residue class
-//   mod step instead: its taps fall on the same lattice, so the halo is 2
-//   lattice points and the window 36×12 at any step;
+// - a block's 8 rows are 8 rows of one residue class mod the step, so the
+//   taps fall 1 row apart on that sub-lattice and the window is 12 rows at
+//   any step; its 32 columns are consecutive with a halo of 2·step (36 to
+//   96 columns wide at steps 1 to 16, ≤ 41.5 KB), or, where that would
+//   pass 48 KB, 32 columns of one residue class too;
 // - window texels past the border hold edge-clamped copies, which is the
 //   plain version's `shift` (clamp to [0, H-1] × [0, W-1]);
+// - the frame's steps with the shipped phi_normal have instances whose
+//   window shape, tap offsets and squarings are compile-time constants,
+//   so a tap costs no address arithmetic;
 // - each weight is computed op for op like the plain version's, in the
 //   same tap order, so the two agree to the bit (--fmad=false).
 #include "common.cuh"
@@ -33,16 +38,21 @@ namespace {
 constexpr int TX = 32, TY = 8;            // a block's tile (lattice points)
 constexpr int PLANES = 9;
 constexpr size_t WINDOW_BUDGET = 48 * 1024;
-// the shipped phi_normal (64 = 2^6) gets an instance with its squarings
-// unrolled; other powers of two run the same squarings in a loop
+// the shipped phi_normal (64 = 2^6) and the frame's steps (1, 2, 4, 8) get
+// instances with the squarings unrolled and the window's shape, hence every
+// tap's shared-memory offset, fixed at compile time; the generic instance
+// takes any power of two and any step
 constexpr int SHIPPED_SQUARINGS = 6;
-
-__constant__ float W1D[3] = {0.375f, 0.25f, 0.0625f};
 
 __host__ __device__ constexpr int iabs(int v) { return v < 0 ? -v : v; }
 
+// the 1-D B3 spline weights 3/8, 1/4, 1/16 at |offset| 0, 1, 2
+__device__ constexpr float w1d(int a) {
+  return a == 0 ? 0.375f : (a == 1 ? 0.25f : 0.0625f);
+}
+
 // shared bytes of a window with halos of hy rows and hx columns a side
-constexpr size_t window_bytes(int hy, int hx) {
+__host__ __device__ constexpr size_t window_bytes(int hy, int hx) {
   return sizeof(float) * PLANES * (TY + 2 * static_cast<size_t>(hy)) *
          (TX + 2 * static_cast<size_t>(hx));
 }
@@ -51,34 +61,39 @@ constexpr size_t window_bytes(int hy, int hx) {
 // rows of one residue class mod |step| (taps 1 row apart on that lattice:
 // the halo is 2 rows at any step, and every window row is a coalesced
 // segment).  Columns: 32 consecutive ones with a halo of 2·|step| where the
-// window fits the budget (steps ≤ 16), else those of one residue class too.
+// window fits the budget (steps ≤ 20), else those of one residue class too.
 struct Layout {
   int lat_y, lat_x;   // lattice strides
   int g_y, g_x;       // tap spacing on the lattice (lat · g = step)
 };
 
-Layout layout(int step) {
+__host__ __device__ constexpr Layout layout(int step) {
   const int s_abs = iabs(step);
   const int sign = step < 0 ? -1 : 1;
-  Layout l{s_abs > 0 ? s_abs : 1, 1, step == 0 ? 0 : sign, step};
-  if (window_bytes(2 * (l.g_y != 0), 2 * s_abs) > WINDOW_BUDGET) {
-    l.lat_x = s_abs;
-    l.g_x = sign;
-  }
-  return l;
+  const bool fits =
+      window_bytes(step == 0 ? 0 : 2, 2 * s_abs) <= WINDOW_BUDGET;
+  return Layout{s_abs > 0 ? s_abs : 1, fits ? 1 : s_abs,
+                step == 0 ? 0 : sign, fits ? step : sign};
 }
 
+struct Pass {
+  const float *illum, *var, *depth, *normal;
+  float *out, *out_var;
+  int H, W;
+  float phi_lum, phi_depth;
+  int n_squarings;
+};
+
 // The block's pixels are (ry + lat_y·ly, rx + lat_x·lx) over a 32×8 tile
-// of lattice points (ly, lx) of the residue class (ry, rx).
-template <int NSQ>
+// of lattice points (ly, lx) of the residue class (ry, rx).  NSQ ≥ 0 and
+// STEP > 0 fix the squarings and the layout at compile time.
+template <int NSQ, int STEP>
 __global__ void __launch_bounds__(TX * TY)
-atrous_kernel(const float* __restrict__ illum, const float* __restrict__ var,
-              const float* __restrict__ depth,
-              const float* __restrict__ normal, int H, int W, Layout l,
-              int tiles_x, int tiles_y, float phi_lum, float phi_depth,
-              int n_squarings, float* __restrict__ out,
-              float* __restrict__ out_var) {
+atrous_kernel(Pass a, Layout l_arg, int tiles_x, int tiles_y) {
   extern __shared__ float win[];
+  const Layout l = STEP > 0 ? layout(STEP) : l_arg;
+  const int n_sq = NSQ >= 0 ? NSQ : a.n_squarings;
+  const int H = a.H, W = a.W;
   const int hy = 2 * iabs(l.g_y), hx = 2 * iabs(l.g_x);   // halos
   const int WW = TX + 2 * hx, WH = TY + 2 * hy, WN = WW * WH;
   float* s_r = win;
@@ -100,17 +115,17 @@ atrous_kernel(const float* __restrict__ illum, const float* __restrict__ var,
       const int px = rtvb::clampi(rx + l.lat_x * (lx0 + wx), 0, W - 1);
       const int p = py * W + px;
       const int i = wy * WW + wx;
-      const float r = illum[3 * p], gg = illum[3 * p + 1],
-                  b = illum[3 * p + 2];
+      const float r = a.illum[3 * p], gg = a.illum[3 * p + 1],
+                  b = a.illum[3 * p + 2];
       s_r[i] = r;
       s_g[i] = gg;
       s_b[i] = b;
       s_l[i] = rtvb::luminance(r, gg, b);
-      s_v[i] = var[p];
-      s_d[i] = depth[p];
-      s_nx[i] = normal[3 * p];
-      s_ny[i] = normal[3 * p + 1];
-      s_nz[i] = normal[3 * p + 2];
+      s_v[i] = a.var[p];
+      s_d[i] = a.depth[p];
+      s_nx[i] = a.normal[3 * p];
+      s_ny[i] = a.normal[3 * p + 1];
+      s_nz[i] = a.normal[3 * p + 2];
     }
   }
   __syncthreads();
@@ -125,27 +140,27 @@ atrous_kernel(const float* __restrict__ illum, const float* __restrict__ var,
   const float d = s_d[c];
   const float nx = s_nx[c], ny = s_ny[c], nz = s_nz[c];
   const float lum_c = s_l[c];
-  const float sigma_l = phi_lum * sqrtf(fmaxf(v, 1e-8f)) + 1e-3f;
+  const float sigma_l = a.phi_lum * sqrtf(fmaxf(v, 1e-8f)) + 1e-3f;
   const float w0 = 0.140625f;                 // 0.375²
   float acc_r = r * w0, acc_g = gg * w0, acc_b = b * w0;
   float acc_v = v * 0.019775390625f;          // w0²
   float wsum = w0;
-  const float d_ref = phi_depth * fmaxf(d, 1.0f);
-  const int n_sq = NSQ >= 0 ? NSQ : n_squarings;
+  const float d_ref = a.phi_depth * fmaxf(d, 1.0f);
 #pragma unroll
   for (int dy = -2; dy <= 2; ++dy) {
 #pragma unroll
     for (int dx = -2; dx <= 2; ++dx) {
       if (dy == 0 && dx == 0) continue;
-      const float wk = W1D[abs(dy)] * W1D[abs(dx)];
+      const float wk = w1d(iabs(dy)) * w1d(iabs(dx));
       // shift(img, oy, ox)[y, x] = img[clamp(y - oy), clamp(x - ox)]:
       // the window texel (dy·g_y, dx·g_x) lattice points back
       const int q = c - dy * l.g_y * WW - dx * l.g_x;
       const float qr = s_r[q], qg = s_g[q], qb = s_b[q];
       const float qd = s_d[q];
       const float n_lum = s_l[q];
-      const float e_z = fabsf(qd - d) /
-                        (d_ref * static_cast<float>(max(abs(dy) + abs(dx), 1)));
+      const float e_z =
+          fabsf(qd - d) /
+          (d_ref * static_cast<float>(max(iabs(dy) + iabs(dx), 1)));
       float w_n = fmaxf(s_nx[q] * nx + s_ny[q] * ny + s_nz[q] * nz, 0.0f);
 #pragma unroll
       for (int k = 0; k < n_sq; ++k) w_n = w_n * w_n;
@@ -161,30 +176,35 @@ atrous_kernel(const float* __restrict__ illum, const float* __restrict__ var,
   }
   const float inv = 1.0f / fmaxf(wsum, 1e-6f);
   const int p = y * W + x;
-  out[3 * p] = acc_r * inv;
-  out[3 * p + 1] = acc_g * inv;
-  out[3 * p + 2] = acc_b * inv;
-  out_var[p] = acc_v * inv * inv;
+  a.out[3 * p] = acc_r * inv;
+  a.out[3 * p + 1] = acc_g * inv;
+  a.out[3 * p + 2] = acc_b * inv;
+  a.out_var[p] = acc_v * inv * inv;
+}
+
+size_t layout_bytes(const Layout& l) {
+  return window_bytes(2 * iabs(l.g_y), 2 * iabs(l.g_x));
 }
 
 // the grid of a pass: (32-column tiles × residue classes of the columns,
 // 8-row tiles × residue classes of the rows); the classes past the image
 // (a lattice coarser than the image) hold no pixel and get no block
-bool grid_of(const Layout& l, int H, int W, int* tiles_x, int* tiles_y,
-             dim3* grid) {
-  *tiles_x = rtvb::blocks_for(rtvb::blocks_for(W, l.lat_x), TX);
-  *tiles_y = rtvb::blocks_for(rtvb::blocks_for(H, l.lat_y), TY);
-  const long long gx = static_cast<long long>(*tiles_x) *
-                       (l.lat_x < W ? l.lat_x : W);
-  const long long gy = static_cast<long long>(*tiles_y) *
-                       (l.lat_y < H ? l.lat_y : H);
-  if (gx > 0x7FFFFFFFLL || gy > 65535) return false;
-  *grid = dim3(static_cast<unsigned>(gx), static_cast<unsigned>(gy));
-  return true;
-}
-
-size_t layout_bytes(const Layout& l) {
-  return window_bytes(2 * iabs(l.g_y), 2 * iabs(l.g_x));
+template <int NSQ, int STEP>
+int launch(const Pass& a, int step, cudaStream_t stream) {
+  const Layout l = layout(step);
+  const int tiles_x = rtvb::blocks_for(rtvb::blocks_for(a.W, l.lat_x), TX);
+  const int tiles_y = rtvb::blocks_for(rtvb::blocks_for(a.H, l.lat_y), TY);
+  const long long gx =
+      static_cast<long long>(tiles_x) * (l.lat_x < a.W ? l.lat_x : a.W);
+  const long long gy =
+      static_cast<long long>(tiles_y) * (l.lat_y < a.H ? l.lat_y : a.H);
+  if (gx > 0x7FFFFFFFLL || gy > 65535)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  atrous_kernel<NSQ, STEP><<<dim3(static_cast<unsigned>(gx),
+                                  static_cast<unsigned>(gy)),
+                             dim3(TX, TY), layout_bytes(l), stream>>>(
+      a, l, tiles_x, tiles_y);
+  return rtvb::launch_status();
 }
 
 }  // namespace
@@ -197,25 +217,39 @@ RTVB_EXPORT int rtvb_atrous(const float* illum, const float* var,
   if (H == 0 || W == 0) return 0;
   int n_squarings = 0;             // phi_normal = 2^n_squarings
   while ((1 << n_squarings) < n_pow) ++n_squarings;
-  const Layout l = layout(step);
-  int tiles_x = 0, tiles_y = 0;
-  dim3 grid;
-  if (!grid_of(l, H, W, &tiles_x, &tiles_y, &grid))
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  auto kern = n_squarings == SHIPPED_SQUARINGS
-                  ? atrous_kernel<SHIPPED_SQUARINGS>
-                  : atrous_kernel<-1>;
-  kern<<<grid, dim3(TX, TY), layout_bytes(l),
-         static_cast<cudaStream_t>(stream)>>>(
-      illum, var, depth, normal, H, W, l, tiles_x, tiles_y, phi_lum,
-      phi_depth, n_squarings, out, out_var);
-  return rtvb::launch_status();
+  const Pass a{illum, var, depth, normal, out, out_var, H, W, phi_lum,
+               phi_depth, n_squarings};
+  auto s = static_cast<cudaStream_t>(stream);
+  if (n_squarings == SHIPPED_SQUARINGS) {
+    constexpr int N = SHIPPED_SQUARINGS;
+    switch (step) {
+      case 1: return launch<N, 1>(a, step, s);
+      case 2: return launch<N, 2>(a, step, s);
+      case 4: return launch<N, 4>(a, step, s);
+      case 8: return launch<N, 8>(a, step, s);
+      default: break;
+    }
+  }
+  return launch<-1, 0>(a, step, s);
 }
 
 // blocks that one SM holds at once for a pass at `step` (shipped
-// phi_normal)
+// phi_normal; the generic instance for the steps the frame does not run)
 RTVB_EXPORT int rtvb_atrous_blocks(int step, int* per_sm) {
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, atrous_kernel<SHIPPED_SQUARINGS>, TX * TY,
-      layout_bytes(layout(step))));
+  constexpr int N = SHIPPED_SQUARINGS;
+  const size_t smem = layout_bytes(layout(step));
+  cudaError_t e;
+  switch (step) {
+    case 1: e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                per_sm, atrous_kernel<N, 1>, TX * TY, smem); break;
+    case 2: e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                per_sm, atrous_kernel<N, 2>, TX * TY, smem); break;
+    case 4: e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                per_sm, atrous_kernel<N, 4>, TX * TY, smem); break;
+    case 8: e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                per_sm, atrous_kernel<N, 8>, TX * TY, smem); break;
+    default: e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                 per_sm, atrous_kernel<-1, 0>, TX * TY, smem);
+  }
+  return static_cast<int>(e);
 }

@@ -9,22 +9,23 @@
 // block-id / exception-search / material-index epilogue.  Plain version:
 // rtvb_tpu_torch/ops/dda.py `trace_plain`.
 //
-// What bounds it on Hopper: the march, not bandwidth.  A ray reads 28 bytes
-// and writes ≤ 36, then runs a data-dependent loop of column sub-steps (up
-// to max_steps + 1, ≈ 100 operations and three table lookups each), so the
-// card's time goes to latency and to lanes that wait for the slowest ray
-// of their warp.  Design:
+// What bounds it on Hopper: the march.  A ray reads 28 bytes and writes
+// ≤ 36, then runs a data-dependent loop of column sub-steps (up to
+// max_steps + 1, ≈ 100 instructions and three table lookups each), so the
+// card's time goes to issuing that loop and to lanes that wait for the
+// slowest ray of their warp.  Design:
 // - persistent blocks: the grid is as many 256-thread blocks as the card
-//   holds at once.  Each block stages what the march reads — the column
-//   masks, the supercolumn distance field and the height envelope, 17 KB
-//   for the 64×32×64 world — into shared memory once, then walks the rays,
-//   instead of restaging them for every 256 rays.  The schema, the
-//   exception list and the material map are read once per ray in the
-//   epilogue, through the read-only cache.
-// - warp-sized chunks: each warp takes 32 rays at a time (an 8×4 pixel
-//   tile when the rays form an image, 32 consecutive rays otherwise) and
-//   the next chunk when all 32 are done, so the lanes of a warp start
-//   together on neighbouring pixels, whose marches are alike.
+//   holds at once (or fewer for few rays).  Each block stages what the
+//   march reads — the column masks, the supercolumn distance field and the
+//   height envelope, 17 KB for the 64×32×64 world — into shared memory
+//   once, then walks its rays, instead of restaging them for every 256
+//   rays.  The schema, the exception list and the material map are read
+//   once per ray in the epilogue, through the read-only cache.
+// - warp-sized chunks: block b's share of the rays is the 32-ray chunks b,
+//   b + grid, b + 2·grid, …, spread over the whole ray set; a warp takes
+//   the share's next chunk from a shared-memory counter when its 32 rays
+//   are done, so a warp that drew short rays does not idle while its
+//   neighbours march, and no global atomic is contended.
 // - one thread per ray and each ray's arithmetic in the plain version's
 //   order: the library is built with --fmad=false, so every record field
 //   equals the plain version's to the bit.
@@ -36,21 +37,15 @@ using rtvb::BIG;
 constexpr float EPS = 1e-6f;
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int TILE_W = 8;             // a warp's pixel tile on image rays
-constexpr int TILE_H = 32 / TILE_W;
 constexpr int SLOTS = 128;            // supercolumn table length
 
 struct World {
   int X, Y, Z, ss, sl, super_z, max_steps, maxh_max, n_exc, n_b2m;
 };
 
-// one launch's rays and how they are cut into warp-sized chunks
 struct Rays {
   const float *ox, *oy, *oz, *dx, *dy, *dz, *tcap;
   int n;
-  int width;      // > 0: an image of rows this wide, in 8×4 tiles
-  int tiles_x;    // tiles per image row
-  int n_chunks;
 };
 
 struct Tables {
@@ -65,18 +60,6 @@ struct Record {
   float *nx, *ny, *nz;
   int* mi;
 };
-
-// the ray a lane takes in a chunk, or -1 past the edge
-__device__ __forceinline__ int ray_of(const Rays& q, int chunk, int lane) {
-  if (q.width == 0) {
-    const int r = chunk * 32 + lane;
-    return r < q.n ? r : -1;
-  }
-  const int x = (chunk % q.tiles_x) * TILE_W + lane % TILE_W;
-  const int y = (chunk / q.tiles_x) * TILE_H + lane / TILE_W;
-  const int r = y * q.width + x;
-  return (x < q.width && r < q.n) ? r : -1;
-}
 
 __device__ __forceinline__ float safe_inv(float v) {
   float s = fabsf(v) < EPS ? (v >= 0.0f ? EPS : -EPS) : v;
@@ -270,8 +253,7 @@ __device__ __forceinline__ void trace_ray(
 
 template <bool ANY_HIT>
 __global__ void __launch_bounds__(THREADS)
-trace_kernel(Rays q, Tables tab, World w, Record out,
-             int* __restrict__ next_chunk) {
+trace_kernel(Rays q, Tables tab, World w, Record out) {
   extern __shared__ int smem[];
   __shared__ int next;        // the block's next chunk, counted in its share
   const int n_cols = w.X * w.Z;
@@ -287,17 +269,19 @@ trace_kernel(Rays q, Tables tab, World w, Record out,
   }
   __syncthreads();
 
-  // block b's share is chunks b, b + grid, b + 2·grid, …: a warp takes
-  // the share's next chunk when its 32 rays are done
+  // chunks of 32 consecutive rays; block b's share is chunks b, b + grid,
+  // b + 2·grid, …, and a warp takes the share's next chunk when its 32
+  // rays are done
   const int lane = threadIdx.x & 31;
+  const int n_chunks = (q.n + 31) / 32;
   for (;;) {
     int k = 0;
     if (lane == 0) k = atomicAdd(&next, 1);
     k = __shfl_sync(0xFFFFFFFFu, k, 0);
     const int chunk = blockIdx.x + k * gridDim.x;
-    if (chunk >= q.n_chunks) return;
-    const int r = ray_of(q, chunk, lane);
-    if (r >= 0) trace_ray<ANY_HIT>(r, q, w, tab, colmask, df, maxh, out);
+    if (chunk >= n_chunks) return;
+    const int r = chunk * 32 + lane;
+    if (r < q.n) trace_ray<ANY_HIT>(r, q, w, tab, colmask, df, maxh, out);
   }
 }
 
@@ -344,52 +328,40 @@ cudaError_t occupancy(size_t smem, int* per_sm, int* sms) {
 
 template <bool ANY_HIT>
 int launch(const Rays& q, const Tables& tab, const World& w,
-           const Record& out, int* next_chunk, cudaStream_t stream) {
+           const Record& out, cudaStream_t stream) {
   const size_t smem = staged_bytes(w.X, w.Z);
   int per_sm = 0, sms = 0;
   cudaError_t e = occupancy<ANY_HIT>(smem, &per_sm, &sms);
   if (e != cudaSuccess) return static_cast<int>(e);
   // the blocks the card holds at once, no more than the chunks need
-  const int want = rtvb::blocks_for(q.n_chunks, WARPS);
+  const int want = rtvb::blocks_for(q.n, THREADS);
   const int grid = per_sm * sms < want ? per_sm * sms : want;
-  trace_kernel<ANY_HIT><<<grid, THREADS, smem, stream>>>(q, tab, w, out,
-                                                         next_chunk);
+  trace_kernel<ANY_HIT><<<grid, THREADS, smem, stream>>>(q, tab, w, out);
   return rtvb::launch_status();
 }
 
 }  // namespace
 
-// width > 0: the n rays form an image of rows `width` wide (n / width
-// rows), taken in 8×4 tiles; width 0: in runs of 32 consecutive rays.
-// next_chunk: one zeroed int32 on the device.
 RTVB_EXPORT int rtvb_trace(
     const float* ox, const float* oy, const float* oz, const float* dx,
-    const float* dy, const float* dz, const float* tcap, int n, int width,
+    const float* dy, const float* dz, const float* tcap, int n,
     const int* colmask, const int* df, const int* maxh, const int* schema,
     const int* exc_mask, const int* exc_key, const int* exc_id,
     const int* b2m, int n_exc, int n_b2m, int X, int Y, int Z,
     int super_size, int super_z, int max_steps, int maxh_max, int any_hit,
     int* hit, float* t, int* ix, int* iy, int* iz, float* nx, float* ny,
-    float* nz, int* mi, int* next_chunk, void* stream) {
+    float* nz, int* mi, void* stream) {
   if (n == 0) return 0;
-  if (width < 0 || (width > 0 && n % width != 0))
-    return static_cast<int>(cudaErrorInvalidValue);
   int sl = 0;
   while ((1 << sl) < super_size) ++sl;
   World w{X, Y, Z, super_size, sl, super_z, max_steps, maxh_max, n_exc,
           n_b2m};
-  Rays q{ox, oy, oz, dx, dy, dz, tcap, n, width, 0, 0};
-  if (width > 0) {
-    q.tiles_x = rtvb::blocks_for(width, TILE_W);
-    q.n_chunks = q.tiles_x * rtvb::blocks_for(n / width, TILE_H);
-  } else {
-    q.n_chunks = rtvb::blocks_for(n, 32);
-  }
+  Rays q{ox, oy, oz, dx, dy, dz, tcap, n};
   Tables tab{colmask, df, maxh, schema, exc_mask, exc_key, exc_id, b2m};
   Record out{hit, t, ix, iy, iz, nx, ny, nz, mi};
   auto s = static_cast<cudaStream_t>(stream);
-  return any_hit ? launch<true>(q, tab, w, out, next_chunk, s)
-                 : launch<false>(q, tab, w, out, next_chunk, s);
+  return any_hit ? launch<true>(q, tab, w, out, s)
+                 : launch<false>(q, tab, w, out, s);
 }
 
 // blocks of an instance that one SM holds at once for an X × Z world

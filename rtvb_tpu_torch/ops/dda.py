@@ -334,13 +334,9 @@ def substeps(o, d, tables: TraceTables, p: TraceParams, t_cap=None,
     return int(torch.stack(tally).sum()) if tally else 0
 
 
-# the rays form an image at least one 8×4 pixel tile large: K1 hands them
-# to its warps in such tiles, other shapes in runs of 32 rays
-TILE_W, TILE_H = 8, 4
-
 TRACE = K.register(K.CudaKernel(
     "trace", "rtvb_trace",
-    [K.P] * 7 + [K.I] * 2 + [K.P] * 8 + [K.I] * 10 + [K.P] * 10))
+    [K.P] * 7 + [K.I] + [K.P] * 8 + [K.I] * 10 + [K.P] * 9))
 
 
 def trace_cuda(o, d, tables: TraceTables, p: TraceParams, t_cap=None,
@@ -381,13 +377,9 @@ def trace_cuda(o, d, tables: TraceTables, p: TraceParams, t_cap=None,
                 torch.empty(shape, **i32), torch.empty(shape, **f32),
                 torch.empty(shape, **f32), torch.empty(shape, **f32),
                 torch.empty(shape, **i32)]
-    image = len(shape) == 2 and shape[0] >= TILE_H and shape[1] >= TILE_W
-    width = shape[1] if image else 0
-    next_chunk = torch.zeros(1, **i32)      # the warps' chunk counter
-    TRACE.launch(dev, *rays, t_cap, n, width, *tabs, n_exc,
+    TRACE.launch(dev, *rays, t_cap, n, *tabs, n_exc,
                  tabs[7].shape[0], p.x, p.y, p.z, p.super_size, p.super_z,
-                 p.max_steps, tables.maxh_max, int(any_hit), *outs,
-                 next_chunk)
+                 p.max_steps, tables.maxh_max, int(any_hit), *outs)
     if any_hit:
         return HitRecord(hit=hit != 0, t=t, ix=None, iy=None, iz=None,
                          nx=None, ny=None, nz=None, mi=None)

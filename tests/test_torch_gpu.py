@@ -4,9 +4,8 @@ GPU machine with:  python -m pytest tests/test_torch_gpu.py -m gpu
 
 Small shapes with ragged edges; K1, K2, K3 and K5 bit-exact (the library
 is built with --fmad=false, so every product rounds like the plain
-version's), K6 to 1e-5 relative; K1 also at the frame's ray-wave shapes
-(its 8×4 pixel tiles), on ray counts that fill no whole 32-ray chunk and on
-an empty ray set; K6 also at every step 1-16 on a 1080p G-buffer, on an
+version's), K6 to 1e-5 relative; K1 also at the frame's ray-wave shapes,
+on ray counts that fill no whole 32-ray chunk and on an empty ray set; K6 also at every step 1-16 on a 1080p G-buffer, on an
 image smaller than one tile and on an odd size (its shared-memory windows,
 contiguous or on a sub-lattice, with clamped borders); K4 on the six cases
 of chip_smoke.py
@@ -89,8 +88,8 @@ def test_trace_kernel_frame_shapes(engine, shape, any_hit):
     _trace_both(engine, shape, any_hit, 7)
 
 
-# flat ray sets in runs of 32: one ray, a part chunk, a chunk and a part,
-# eight chunks and a part; an image one row short of a tile; no ray at all
+# K1 takes rays in chunks of 32: one ray, a part chunk, a chunk and a
+# part, eight chunks and a part, 150 rays in 3 rows; no ray at all
 @pytest.mark.parametrize("shape", [(1,), (31,), (33,), (257,), (3, 50),
                                    (0,)])
 @pytest.mark.parametrize("any_hit", [False, True])
