@@ -88,6 +88,13 @@ __device__ __forceinline__ uint32_t range_mask(int ylo, int yhi) {
   return hi_mask & ~lo_mask;
 }
 
+// the bits of −sign(v) as the plain version's `-torch.sign(v)` gives them:
+// −1, +1, or −0 where v is ±0 or NaN.  Selected as integers: a float
+// select lets the compiler fold the −0 into +0.
+__device__ __forceinline__ uint32_t neg_sign_bits(float v) {
+  return v > 0.0f ? 0xBF800000u : (v < 0.0f ? 0x3F800000u : 0x80000000u);
+}
+
 __device__ int material_index(const World& w, const Tables& tab, int ix,
                               int iy, int iz) {
   int c = rtvb::clampi(ix * w.Z + iz, 0, w.X * w.Z - 1);
@@ -97,15 +104,20 @@ __device__ int material_index(const World& w, const Tables& tab, int ix,
   int h2 = (sch >> 5) & 31;
   int bid = iy < h1 ? (sch >> 10) & 63
                     : (iy < h2 ? (sch >> 16) & 63 : (sch >> 22) & 63);
-  bool has_exc = ((emask >> rtvb::clampi(iy, 0, 31)) & 1u) == 1u;
-  int key = c * w.Y + iy;
-  int lo = 0, hi = w.n_exc;                 // lower bound of key
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    if (__ldg(tab.exc_key + mid) < key) lo = mid + 1; else hi = mid;
+  // the exception list is searched only for a voxel its column marks:
+  // the plain version searches for every ray and keeps the schema's id
+  // for the others, so the result is the same without the search's chain
+  // of dependent loads for nearly every ray
+  if ((emask >> rtvb::clampi(iy, 0, 31)) & 1u) {
+    int key = c * w.Y + iy;
+    int lo = 0, hi = w.n_exc;               // lower bound of key
+    while (lo < hi) {
+      int mid = (lo + hi) >> 1;
+      if (__ldg(tab.exc_key + mid) < key) lo = mid + 1; else hi = mid;
+    }
+    lo = rtvb::clampi(lo, 0, w.n_exc - 1);
+    if (__ldg(tab.exc_key + lo) == key) bid = __ldg(tab.exc_id + lo);
   }
-  lo = rtvb::clampi(lo, 0, w.n_exc - 1);
-  if (has_exc && __ldg(tab.exc_key + lo) == key) bid = __ldg(tab.exc_id + lo);
   return __ldg(tab.b2m + rtvb::clampi(bid, 0, w.n_b2m - 1));
 }
 
@@ -242,12 +254,9 @@ __device__ __forceinline__ void trace_ray(
   out.ix[r] = hit_ix;
   out.iy[r] = hit_iy;
   out.iz[r] = hit_iz;
-  const float sx = dx > 0.0f ? 1.0f : (dx < 0.0f ? -1.0f : 0.0f);
-  const float sy = dy > 0.0f ? 1.0f : (dy < 0.0f ? -1.0f : 0.0f);
-  const float sz = dz > 0.0f ? 1.0f : (dz < 0.0f ? -1.0f : 0.0f);
-  out.nx[r] = hit_axis == 0 ? -sx : 0.0f;
-  out.ny[r] = hit_axis == 1 ? -sy : 0.0f;
-  out.nz[r] = hit_axis == 2 ? -sz : 0.0f;
+  out.nx[r] = __uint_as_float(hit_axis == 0 ? neg_sign_bits(dx) : 0u);
+  out.ny[r] = __uint_as_float(hit_axis == 1 ? neg_sign_bits(dy) : 0u);
+  out.nz[r] = __uint_as_float(hit_axis == 2 ? neg_sign_bits(dz) : 0u);
   out.mi[r] = material_index(w, tab, hit_ix, hit_iy, hit_iz);
 }
 

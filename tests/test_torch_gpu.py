@@ -44,14 +44,22 @@ def _bits_equal(a, b):
 
 
 def _rays(engine, seed, shape=(90, 130)):
+    """Random rays; every 7th is the path tracer's parked ray (from
+    (0, 1e4, 0) straight up, as a dead path's next bounce is traced) and
+    every 5th runs in a vertical plane (an exactly zero x or z)."""
     g = torch.Generator().manual_seed(seed)
     dev = engine.device
     o = torch.rand(3, *shape, generator=g) * torch.tensor(
         [64.0, 20, 64]).reshape(3, *[1] * len(shape))
     d = torch.randn(3, *shape, generator=g)
     d = d / d.norm(dim=0, keepdim=True).clamp(min=1e-6)
-    return (tuple(c.contiguous().to(dev) for c in o),
-            tuple(c.contiguous().to(dev) for c in d))
+    o, d = o.reshape(3, -1), d.reshape(3, -1)
+    o[:, ::7] = torch.tensor([[0.0], [1e4], [0.0]])
+    d[:, ::7] = torch.tensor([[0.0], [1.0], [0.0]])
+    d[0, 1::10] = 0.0
+    d[2, 6::10] = 0.0
+    return (tuple(c.reshape(shape).contiguous().to(dev) for c in o),
+            tuple(c.reshape(shape).contiguous().to(dev) for c in d))
 
 
 def _trace_both(engine, shape, any_hit, seed):
