@@ -38,10 +38,10 @@ namespace {
 constexpr int TX = 32, TY = 8;            // a block's tile (lattice points)
 constexpr int PLANES = 9;
 constexpr size_t WINDOW_BUDGET = 48 * 1024;
-// the shipped phi_normal (64 = 2^6) and the frame's steps (1, 2, 4, 8) get
-// instances with the squarings unrolled and the window's shape, hence every
-// tap's shared-memory offset, fixed at compile time; the generic instance
-// takes any power of two and any step
+// the shipped phi_normal (64 = 2^6) gets instances with the squarings
+// unrolled, and at the frame's steps (1, 2, 4, 8) with the window's shape,
+// hence every tap's shared-memory offset, fixed at compile time too; the
+// generic instance takes any power of two and any step
 constexpr int SHIPPED_SQUARINGS = 6;
 
 __host__ __device__ constexpr int iabs(int v) { return v < 0 ? -v : v; }
@@ -227,14 +227,14 @@ RTVB_EXPORT int rtvb_atrous(const float* illum, const float* var,
       case 2: return launch<N, 2>(a, step, s);
       case 4: return launch<N, 4>(a, step, s);
       case 8: return launch<N, 8>(a, step, s);
-      default: break;
+      default: return launch<N, 0>(a, step, s);
     }
   }
   return launch<-1, 0>(a, step, s);
 }
 
 // blocks that one SM holds at once for a pass at `step` (shipped
-// phi_normal; the generic instance for the steps the frame does not run)
+// phi_normal)
 RTVB_EXPORT int rtvb_atrous_blocks(int step, int* per_sm) {
   constexpr int N = SHIPPED_SQUARINGS;
   const size_t smem = layout_bytes(layout(step));
@@ -249,7 +249,7 @@ RTVB_EXPORT int rtvb_atrous_blocks(int step, int* per_sm) {
     case 8: e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
                 per_sm, atrous_kernel<N, 8>, TX * TY, smem); break;
     default: e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                 per_sm, atrous_kernel<-1, 0>, TX * TY, smem);
+                 per_sm, atrous_kernel<N, 0>, TX * TY, smem);
   }
   return static_cast<int>(e);
 }
