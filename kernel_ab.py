@@ -13,9 +13,9 @@ entry points take the place of this checkout's for its turns.  For every
 case the builds run in turns (`chip_smoke.timed_rounds`: rounds of 20
 calls each, the order reversed every round) after their outputs are held
 against this checkout's bit for bit (but for the sign of a zero).  The
-medians go to stdout and, with every round, to chiprun_out/kernel_ab.json;
-nvcc's register / spill report of each build to
-chiprun_out/kernel_ab_ptxas.log.
+medians go to stdout and, with every round, to kernel_ab.json in
+chip_smoke's log directory; nvcc's register / spill report of each build
+to kernel_ab_ptxas.log there.
 """
 from __future__ import annotations
 

@@ -9,12 +9,11 @@
 //
 // What bounds it on Hopper: arithmetic.  A pixel reads 25 taps of 9 values
 // (colour, variance, depth, normal and the tap's luminance), 32 bytes of
-// it from memory, and spends ≈ 75 instructions on each of its 24 weights:
-// two IEEE divisions (a reciprocal, six FMAs and a range check each), an
-// accurate expf and six squarings among them.  The taps themselves are
-// not what costs: fetched straight from global memory at 256 pixels of one
-// row a block, they were served by L1 and L2, and the loads were never the
-// limit.  Design:
+// it from memory, and each of its 24 weights costs two IEEE divisions (a
+// reciprocal, its refinement and a range check each), an accurate expf and
+// six squarings.  The taps themselves are not what costs: fetched straight
+// from global memory at 256 pixels of one row a block, they were served by
+// L1 and L2, and the loads were never the limit.  Design:
 // - a 32×8 block stages its stencil window once, with coalesced loads, in
 //   shared memory as nine planes (r, g, b, var, depth, nx, ny, nz and
 //   luminance, computed once per texel with the same rtvb::luminance), and
