@@ -13,16 +13,18 @@
    on bounce 0's shadow rays and on bounces 1-2's batched), random rays at
    the GI shapes and sun shadow rays, its bound counting the sub-steps
    these rays march (the plain version's tally); K6 (à-trous) on the
-   frame's own four passes (steps 1, 2, 4, 8) and at step 16; a frame's
-   time of K1, K4 and K6 summed from the launches the frame makes; K5
-   nearest against grid_sample in 7 rounds of 20 calls, the order reversed
-   every round; registers and spills from the ptxas report and K1's and
-   K6's resident blocks an SM; K4 (fused shade) on the frame's own
-   bounce-0 and bounce-1 inputs: (a) as the frame calls it, (b) with a
-   synthetic 200-slot light table, 8 candidates, 3 taps and entity MIS,
-   (c) at 960×540 with 2 candidates and no taps, (d) with blue noise off,
-   (e) with 5 candidates and 2 taps (the kernel's generic instance), (f)
-   bounce 1 as the frame calls it (the instance that also runs bounce 2);
+   frame's own four passes (steps 1, 2, 4, 8), at steps 16 and 32, and at
+   phi_normal 32 (its generic instance); a frame's time of K1, K4 and K6
+   summed from the launches the frame makes; K5 nearest against
+   grid_sample in 7 rounds of 20 calls, the order reversed every round;
+   registers and spills from the ptxas report, and K1's and
+   K6's resident blocks an SM computed from them; K4 (fused shade) on the
+   frame's own bounce-0 and bounce-1 inputs: (a) as the frame calls it,
+   (b) with a synthetic 200-slot light table, 8 candidates, 3 taps and
+   entity MIS, (c) at 960×540 with 2 candidates and no taps, (d) with blue
+   noise off, (e) with 5 candidates and 2 taps (the kernel's generic
+   instance), (f) bounce 1 as the frame calls it (the instance that also
+   runs bounce 2);
 3. drives the main path — Engine(device="cuda") with the shipped
    Settings() at 1920×1080 (fused shading, native resolution) — through
    warm-up and timed frames, every kernel's launch counter reset just
@@ -326,8 +328,9 @@ def trace_inputs(eng, traces) -> dict:
 
 def atrous_inputs(eng, atrous) -> dict:
     """K6's cases: {label: (illum, var, depth, normal, step, phis)}: the
-    frame's passes as captured (steps 1, 2, 4, 8), then step 16 on the
-    first pass's inputs."""
+    frame's passes as captured (steps 1, 2, 4, 8), then on the first
+    pass's inputs step 16, step 32 (a window past the default 48 KB of
+    shared memory) and step 1 at phi_normal 32 (the generic instance)."""
     steps = [a[4] for a in atrous]
     n_it = eng.settings.denoising.atrous_iterations
     check(steps == [1 << i for i in range(n_it)],
@@ -338,7 +341,12 @@ def atrous_inputs(eng, atrous) -> dict:
         cases[f"frame step {step}, {W}x{H}"] = (illum, var, depth, normal,
                                                 step, phis)
     illum, var, depth, normal, _, phis = atrous[0]
-    cases[f"step 16, {W}x{H}"] = (illum, var, depth, normal, 16, phis)
+    for step in (16, 32):
+        cases[f"step {step}, {W}x{H}"] = (illum, var, depth, normal, step,
+                                          phis)
+    phi_lum, _, phi_depth = phis
+    cases[f"step 1, phi_normal 32 (generic), {W}x{H}"] = (
+        illum, var, depth, normal, 1, (phi_lum, 32.0, phi_depth))
     return cases
 
 
@@ -356,16 +364,24 @@ TRACE_SUBSTEP_OPS = 96
 ATROUS_PIXEL_OPS = 24 * 39 + 15
 
 
-def trace_work(eng, o, d, cap, any_hit, tab_bytes):
-    """(bytes, ops, sub-steps) of one K1 launch: the rays and their cap
-    in, the record out (hit and t, or the whole closest-hit record: hit, t,
-    voxel, normal, material), the tables; the set-up per ray and the
-    sub-steps these rays run, from the plain version's count."""
+def trace_work(eng, o, d, cap, any_hit):
+    """(bytes, ops, sub-steps) of one K1 launch.  Bytes: what the function
+    needs to move, each once: the rays (24 B a ray), their cap only where
+    the call passes one (4 B), the record out as the function returns it
+    (a 1-byte hit and the 4-byte t, and for closest hit the voxel, normal
+    and material, 28 B more), the tables the instance reads (the march's
+    three, and for closest hit the epilogue's).  Ops: the set-up per ray
+    and the sub-steps these rays run, from the plain version's count."""
     from rtvb_tpu_torch.ops import dda
+    tab = eng._tables
     n_rays = o[0].numel()
-    per = 28 + (8 if any_hit else 36)
-    n_sub = dda.substeps(o, d, eng._tables, eng._tp, cap, any_hit)
-    return (n_rays * per + tab_bytes,
+    per = 24 + (4 if cap is not None else 0) + (5 if any_hit else 33)
+    read = [tab.colmask, tab.df, tab.maxh]
+    if not any_hit:
+        read += [tab.schema, tab.exc_mask, tab.exc_key, tab.exc_id,
+                 tab.block_to_mat]
+    n_sub = dda.substeps(o, d, tab, eng._tp, cap, any_hit)
+    return (n_rays * per + nbytes(*read),
             TRACE_SETUP_OPS[any_hit] * n_rays + TRACE_SUBSTEP_OPS * n_sub,
             n_sub)
 
@@ -401,13 +417,12 @@ def kernel_cases(eng, rep: Report, traces, atrous):
     check(0.5 < hit_frac < 0.9, f"hit fraction {hit_frac} off 0.7")
     p = m.add(o, m.scale(d, torch.where(rec.hit, rec.t, 0.0)))
     n = (rec.nx, rec.ny, rec.nz)
-    tab_bytes = nbytes(*(t for t in tables if isinstance(t, torch.Tensor)))
     substeps = {}
     k1 = trace_inputs(eng, traces)
     h2, w2 = H // 2, W // 2
     ro, rd = k1[f"random rays {w2}x{h2}, closest"][:2]
     for label, (to, td, tc, ah) in k1.items():
-        n_bytes, n_ops, n_sub = trace_work(eng, to, td, tc, ah, tab_bytes)
+        n_bytes, n_ops, n_sub = trace_work(eng, to, td, tc, ah)
         substeps[label] = dict(rays=to[0].numel(), substeps=n_sub)
         log(f"    {label}: {n_sub} sub-steps, "
             f"{n_sub / max(to[0].numel(), 1):.2f} a ray")
@@ -1048,8 +1063,9 @@ def dynres_walk(eng, K, n_frames: int = 30) -> dict:
 
 
 def ptxas_report(build_log: str) -> list:
-    """Registers and spills of each kernel entry in nvcc's -Xptxas -v
-    output: [{kernel, registers, spill_stores, spill_loads}]."""
+    """Registers, static shared memory and spills of each kernel entry in
+    nvcc's -Xptxas -v output: [{kernel, registers, smem, spill_stores,
+    spill_loads}]."""
     import re
     out, name = [], None
     for line in build_log.splitlines():
@@ -1066,24 +1082,53 @@ def ptxas_report(build_log: str) -> list:
         m = re.search(r"Used (\d+) registers", line)
         if m and out and out[-1]["kernel"] == name:
             out[-1]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[-1]["smem"] = int(sm.group(1)) if sm else 0
             name = None
     return [r for r in out if "registers" in r]
 
 
-def resident_blocks(eng) -> dict:
-    """Blocks of K1 and K6 that an SM holds at once at the frame's
-    settings, from the CUDA runtime (the grid K1 launches is this times
-    the SM count)."""
-    from rtvb_tpu_torch.ops import dda
-    from rtvb_tpu_torch.ops.denoise import atrous_kernel
+# an H100 SM's limits, as the CUDA occupancy calculator counts them
+# (compute capability 9.0): registers are given to a warp in units of 256,
+# shared memory to a block with 1 KB reserved
+SM_REGISTERS, SM_WARPS, SM_BLOCKS = 65536, 64, 32
+SM_SHARED, BLOCK_RESERVED, REG_UNIT = 233472, 1024, 256
+
+
+def blocks_per_sm(registers: int, threads: int, smem: int) -> int:
+    """Blocks of `threads` threads that one SM holds at once."""
+    warps = -(-threads // 32)
+    warp_regs = -(-registers * 32 // REG_UNIT) * REG_UNIT
+    return min(SM_BLOCKS, SM_WARPS // warps,
+               SM_REGISTERS // (warp_regs * warps),
+               SM_SHARED // (smem + BLOCK_RESERVED))
+
+
+def resident_blocks(eng, ptxas: list) -> dict:
+    """Blocks of K1 and K6 an SM holds at once at the frame's settings (the
+    grid K1 launches is this times the SM count): each instance's ptxas
+    registers and static shared memory, plus the dynamic shared memory
+    its launch asks for (K1: the column masks and the two 128-slot
+    supercolumn tables; K6: nine planes of a 12-row window, 32 + 4·step
+    columns wide), under the SM's limits."""
+    import re
     out = {}
-    for any_hit in (False, True):
-        out[f"trace any_hit={any_hit}"] = dda.resident_blocks(
-            eng._tp, any_hit, eng.device)
-    for step in (1, 2, 4, 8, 16):
-        out[f"atrous step {step}"] = atrous_kernel.resident_blocks(
-            step, eng.device)
-    return out
+    tp = eng._tp
+    for r in ptxas:
+        m = re.search(r"trace_kernelILb([01])E", r["kernel"])
+        if m:
+            staged = 4 * (tp.x * tp.z + 2 * 128)
+            out[f"trace any_hit={m.group(1) == '1'}"] = blocks_per_sm(
+                r["registers"], 256, r["smem"] + staged)
+        # the shipped phi_normal's instances: 2^6, at a fixed step or not
+        m = re.search(r"atrous_kernelILi6ELi(\d+)E", r["kernel"])
+        if m:
+            for step in ([int(m.group(1))] if m.group(1) != "0"
+                         else [16, 32]):
+                window = 4 * 9 * 12 * (32 + 4 * step)
+                out[f"atrous step {step}"] = blocks_per_sm(
+                    r["registers"], 256, r["smem"] + window)
+    return dict(sorted(out.items()))
 
 
 def warp_vs_grid_sample(eng, rounds: int = 7, runs: int = 20) -> dict:
@@ -1165,8 +1210,9 @@ def main() -> int:
         log(f"ptxas {r['kernel']}: {r['registers']} registers, "
             f"{r['spill_stores']} B spill stores, {r['spill_loads']} B "
             f"spill loads")
-    occupancy = resident_blocks(eng)
-    log(f"resident blocks an SM (the CUDA runtime's occupancy): {occupancy}")
+    occupancy = resident_blocks(eng, ptxas)
+    log(f"resident blocks an SM (registers and shared memory against the "
+        f"SM's limits): {occupancy}")
     log("kernels against their plain versions (CUDA events, median of 10):")
     rep = Report()
     traces, atrous = capture_frame_calls(eng)

@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import ctypes
 import json
 import os
 import shutil
@@ -34,18 +33,13 @@ import chip_smoke as S
 
 
 @contextlib.contextmanager
-def using(kernel, cdll):
-    """Run a kernel handle on another library's entry point of the same C
-    interface."""
-    fn = getattr(cdll, kernel.symbol)
-    fn.argtypes = kernel.argtypes
-    fn.restype = ctypes.c_int
-    saved = kernel._get()
-    kernel._fn = fn
+def using(kernel, library):
+    """Run a kernel handle on another build's entry point meanwhile."""
+    prev = kernel.use(library)
     try:
         yield
     finally:
-        kernel._fn = saved
+        kernel.use(prev)
 
 
 def same_bits(a, b, label):
@@ -86,12 +80,13 @@ def main() -> int:
     K.LIBRARY.get()
     logs = [f"# this checkout\n{K.LIBRARY.build_log or ''}"]
     sources = dict(v.split("=", 1) for v in args.variant)
-    builds = {}                 # label → CDLL
+    builds = {}                 # label → kernels.Library
     tmp = tempfile.mkdtemp(prefix="rtvb_kernel_ab_")
     try:
         for label, src in sources.items():
             lib = K.Library(os.path.abspath(src), os.path.join(tmp, label))
-            builds[label] = lib.get()
+            lib.get()
+            builds[label] = lib
             logs.append(f"# {label} ({src})\n{lib.build_log}")
         with open(os.path.join(S.LOG_DIR, "kernel_ab_ptxas.log"), "w") as f:
             f.write("\n".join(logs))

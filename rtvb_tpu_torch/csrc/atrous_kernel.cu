@@ -3,8 +3,8 @@
 // (variance-scaled), normal (pow by repeated squaring) and depth.
 //
 // Replaces: rtvb_tpu/ops/denoise/atrous_kernel.py `_atrous_call` /
-// `_make_kernel` (entry `atrous_pass_tpu`) and, because any step is taken,
-// the XLA fallback the TPU path used above MAX_STEP = 8.  Plain version:
+// `_make_kernel` (entry `atrous_pass_tpu`) and, because it takes steps past
+// 8, the XLA fallback the TPU path used above MAX_STEP = 8.  Plain version:
 // rtvb_tpu_torch/ops/denoise/passes.py `atrous_pass_plain`.
 //
 // What bounds it on Hopper: arithmetic.  A pixel reads 25 taps of 9 values
@@ -21,8 +21,9 @@
 // - a block's 8 rows are 8 rows of one residue class mod the step, so the
 //   taps fall 1 row apart on that sub-lattice and the window is 12 rows at
 //   any step; its 32 columns are consecutive with a halo of 2·step (36 to
-//   96 columns wide at steps 1 to 16, ≤ 41.5 KB), or, where that would
-//   pass 48 KB, 32 columns of one residue class too;
+//   96 columns at steps 1 to 16, ≤ 41.5 KB).  A window past the default
+//   48 KB (step ≥ 21) opts into more; the widest that fits the 227 KB a
+//   block may hold on an H100 is step 126, and a wider step is refused;
 // - window texels past the border hold edge-clamped copies, which is the
 //   plain version's `shift` (clamp to [0, H-1] × [0, W-1]);
 // - the frame's steps with the shipped phi_normal have instances whose
@@ -34,9 +35,9 @@
 
 namespace {
 
-constexpr int TX = 32, TY = 8;            // a block's tile (lattice points)
+constexpr int TX = 32, TY = 8;            // a block's tile
 constexpr int PLANES = 9;
-constexpr size_t WINDOW_BUDGET = 48 * 1024;
+constexpr size_t DEFAULT_SHARED = 48 * 1024;
 // the shipped phi_normal (64 = 2^6) gets instances with the squarings
 // unrolled, and at the frame's steps (1, 2, 4, 8) with the window's shape,
 // hence every tap's shared-memory offset, fixed at compile time too; the
@@ -50,51 +51,45 @@ __device__ constexpr float w1d(int a) {
   return a == 0 ? 0.375f : (a == 1 ? 0.25f : 0.0625f);
 }
 
-// shared bytes of a window with halos of hy rows and hx columns a side
-__host__ __device__ constexpr size_t window_bytes(int hy, int hx) {
-  return sizeof(float) * PLANES * (TY + 2 * static_cast<size_t>(hy)) *
-         (TX + 2 * static_cast<size_t>(hx));
-}
-
 // Where a pass at `step` puts its blocks.  Rows: a block's 8 rows are the
-// rows of one residue class mod |step| (taps 1 row apart on that lattice:
-// the halo is 2 rows at any step, and every window row is a coalesced
-// segment).  Columns: 32 consecutive ones with a halo of 2·|step| where the
-// window fits the budget (steps ≤ 20), else those of one residue class too.
+// rows of one residue class mod |step|, `lat` apart, and its row taps are
+// g = sign(step) lattice rows apart (the halo is 2·|g| rows, and every
+// window row is a coalesced segment).  Columns: 32 consecutive ones, taps
+// `step` apart, with a halo of 2·|step|.
 struct Layout {
-  int lat_y, lat_x;   // lattice strides
-  int g_y, g_x;       // tap spacing on the lattice (lat · g = step)
+  int lat, g, hy, hx;
 };
 
 __host__ __device__ constexpr Layout layout(int step) {
-  const int s_abs = iabs(step);
-  const int sign = step < 0 ? -1 : 1;
-  const bool fits =
-      window_bytes(step == 0 ? 0 : 2, 2 * s_abs) <= WINDOW_BUDGET;
-  return Layout{s_abs > 0 ? s_abs : 1, fits ? 1 : s_abs,
-                step == 0 ? 0 : sign, fits ? step : sign};
+  return Layout{step == 0 ? 1 : iabs(step), (step > 0) - (step < 0),
+                step == 0 ? 0 : 2, 2 * iabs(step)};
+}
+
+__host__ __device__ constexpr size_t window_bytes(int step) {
+  return sizeof(float) * PLANES * (TY + 2 * layout(step).hy) *
+         (TX + 2 * static_cast<size_t>(layout(step).hx));
 }
 
 struct Pass {
   const float *illum, *var, *depth, *normal;
   float *out, *out_var;
-  int H, W;
+  int H, W, step;
   float phi_lum, phi_depth;
   int n_squarings;
 };
 
-// The block's pixels are (ry + lat_y·ly, rx + lat_x·lx) over a 32×8 tile
-// of lattice points (ly, lx) of the residue class (ry, rx).  NSQ ≥ 0 and
-// STEP > 0 fix the squarings and the layout at compile time.
+// The block's pixels are (ry + lat·ly, x) over a tile of 8 lattice rows ly
+// of the residue class ry and 32 columns x.  NSQ ≥ 0 and STEP > 0 fix the
+// squarings and the layout at compile time.
 template <int NSQ, int STEP>
 __global__ void __launch_bounds__(TX * TY)
-atrous_kernel(Pass a, Layout l_arg, int tiles_x, int tiles_y) {
+atrous_kernel(Pass a, int tiles_y) {
   extern __shared__ float win[];
-  const Layout l = STEP > 0 ? layout(STEP) : l_arg;
+  const int step = STEP > 0 ? STEP : a.step;
+  const Layout l = layout(step);
   const int n_sq = NSQ >= 0 ? NSQ : a.n_squarings;
   const int H = a.H, W = a.W;
-  const int hy = 2 * iabs(l.g_y), hx = 2 * iabs(l.g_x);   // halos
-  const int WW = TX + 2 * hx, WH = TY + 2 * hy, WN = WW * WH;
+  const int WW = TX + 2 * l.hx, WH = TY + 2 * l.hy, WN = WW * WH;
   float* s_r = win;
   float* s_g = s_r + WN;
   float* s_b = s_g + WN;
@@ -105,13 +100,13 @@ atrous_kernel(Pass a, Layout l_arg, int tiles_x, int tiles_y) {
   float* s_nz = s_ny + WN;
   float* s_l = s_nz + WN;
 
-  const int rx = blockIdx.x / tiles_x, ry = blockIdx.y / tiles_y;
-  const int lx0 = (blockIdx.x % tiles_x) * TX - hx;   // window origin
-  const int ly0 = (blockIdx.y % tiles_y) * TY - hy;
+  const int ry = blockIdx.y / tiles_y;
+  const int x0 = blockIdx.x * TX - l.hx;              // window origin
+  const int ly0 = (blockIdx.y % tiles_y) * TY - l.hy;
   for (int wy = threadIdx.y; wy < WH; wy += TY) {
-    const int py = rtvb::clampi(ry + l.lat_y * (ly0 + wy), 0, H - 1);
+    const int py = rtvb::clampi(ry + l.lat * (ly0 + wy), 0, H - 1);
     for (int wx = threadIdx.x; wx < WW; wx += TX) {
-      const int px = rtvb::clampi(rx + l.lat_x * (lx0 + wx), 0, W - 1);
+      const int px = rtvb::clampi(x0 + wx, 0, W - 1);
       const int p = py * W + px;
       const int i = wy * WW + wx;
       const float r = a.illum[3 * p], gg = a.illum[3 * p + 1],
@@ -130,10 +125,10 @@ atrous_kernel(Pass a, Layout l_arg, int tiles_x, int tiles_y) {
   __syncthreads();
 
   const int ty = threadIdx.y, tx = threadIdx.x;
-  const int y = ry + l.lat_y * (ly0 + hy + ty);
-  const int x = rx + l.lat_x * (lx0 + hx + tx);
+  const int y = ry + l.lat * (ly0 + l.hy + ty);
+  const int x = x0 + l.hx + tx;
   if (y >= H || x >= W) return;
-  const int c = (ty + hy) * WW + tx + hx;
+  const int c = (ty + l.hy) * WW + tx + l.hx;
   const float r = s_r[c], gg = s_g[c], b = s_b[c];
   const float v = s_v[c];
   const float d = s_d[c];
@@ -152,8 +147,8 @@ atrous_kernel(Pass a, Layout l_arg, int tiles_x, int tiles_y) {
       if (dy == 0 && dx == 0) continue;
       const float wk = w1d(iabs(dy)) * w1d(iabs(dx));
       // shift(img, oy, ox)[y, x] = img[clamp(y - oy), clamp(x - ox)]:
-      // the window texel (dy·g_y, dx·g_x) lattice points back
-      const int q = c - dy * l.g_y * WW - dx * l.g_x;
+      // the window texel dy·g lattice rows and dx·step columns back
+      const int q = c - dy * l.g * WW - dx * step;
       const float qr = s_r[q], qg = s_g[q], qb = s_b[q];
       const float qd = s_d[q];
       const float n_lum = s_l[q];
@@ -181,28 +176,34 @@ atrous_kernel(Pass a, Layout l_arg, int tiles_x, int tiles_y) {
   a.out_var[p] = acc_v * inv * inv;
 }
 
-size_t layout_bytes(const Layout& l) {
-  return window_bytes(2 * iabs(l.g_y), 2 * iabs(l.g_x));
-}
-
-// the grid of a pass: (32-column tiles × residue classes of the columns,
-// 8-row tiles × residue classes of the rows); the classes past the image
-// (a lattice coarser than the image) hold no pixel and get no block
+// the grid of a pass: (32-column tiles, 8-row tiles × residue classes of
+// the rows); the classes past the image (a lattice coarser than the
+// image) hold no pixel and get no block
 template <int NSQ, int STEP>
-int launch(const Pass& a, int step, cudaStream_t stream) {
-  const Layout l = layout(step);
-  const int tiles_x = rtvb::blocks_for(rtvb::blocks_for(a.W, l.lat_x), TX);
-  const int tiles_y = rtvb::blocks_for(rtvb::blocks_for(a.H, l.lat_y), TY);
-  const long long gx =
-      static_cast<long long>(tiles_x) * (l.lat_x < a.W ? l.lat_x : a.W);
+int launch(const Pass& a, cudaStream_t stream) {
+  const Layout l = layout(a.step);
+  const size_t smem = window_bytes(a.step);
+  auto kern = atrous_kernel<NSQ, STEP>;
+  if (smem > DEFAULT_SHARED) {
+    int dev = 0, optin = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (smem > static_cast<size_t>(optin))
+      return static_cast<int>(cudaErrorInvalidValue);
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int tiles_x = rtvb::blocks_for(a.W, TX);
+  const int tiles_y = rtvb::blocks_for(rtvb::blocks_for(a.H, l.lat), TY);
   const long long gy =
-      static_cast<long long>(tiles_y) * (l.lat_y < a.H ? l.lat_y : a.H);
-  if (gx > 0x7FFFFFFFLL || gy > 65535)
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  atrous_kernel<NSQ, STEP><<<dim3(static_cast<unsigned>(gx),
-                                  static_cast<unsigned>(gy)),
-                             dim3(TX, TY), layout_bytes(l), stream>>>(
-      a, l, tiles_x, tiles_y);
+      static_cast<long long>(tiles_y) * (l.lat < a.H ? l.lat : a.H);
+  if (gy > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  kern<<<dim3(static_cast<unsigned>(tiles_x), static_cast<unsigned>(gy)),
+         dim3(TX, TY), smem, stream>>>(a, tiles_y);
   return rtvb::launch_status();
 }
 
@@ -216,39 +217,16 @@ RTVB_EXPORT int rtvb_atrous(const float* illum, const float* var,
   if (H == 0 || W == 0) return 0;
   int n_squarings = 0;             // phi_normal = 2^n_squarings
   while ((1 << n_squarings) < n_pow) ++n_squarings;
-  const Pass a{illum, var, depth, normal, out, out_var, H, W, phi_lum,
-               phi_depth, n_squarings};
+  const Pass a{illum, var,  depth,   normal,    out,       out_var,
+               H,     W,    step,    phi_lum,   phi_depth, n_squarings};
   auto s = static_cast<cudaStream_t>(stream);
-  if (n_squarings == SHIPPED_SQUARINGS) {
-    constexpr int N = SHIPPED_SQUARINGS;
-    switch (step) {
-      case 1: return launch<N, 1>(a, step, s);
-      case 2: return launch<N, 2>(a, step, s);
-      case 4: return launch<N, 4>(a, step, s);
-      case 8: return launch<N, 8>(a, step, s);
-      default: return launch<N, 0>(a, step, s);
-    }
-  }
-  return launch<-1, 0>(a, step, s);
-}
-
-// blocks that one SM holds at once for a pass at `step` (shipped
-// phi_normal)
-RTVB_EXPORT int rtvb_atrous_blocks(int step, int* per_sm) {
+  if (n_squarings != SHIPPED_SQUARINGS) return launch<-1, 0>(a, s);
   constexpr int N = SHIPPED_SQUARINGS;
-  const size_t smem = layout_bytes(layout(step));
-  cudaError_t e;
   switch (step) {
-    case 1: e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                per_sm, atrous_kernel<N, 1>, TX * TY, smem); break;
-    case 2: e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                per_sm, atrous_kernel<N, 2>, TX * TY, smem); break;
-    case 4: e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                per_sm, atrous_kernel<N, 4>, TX * TY, smem); break;
-    case 8: e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                per_sm, atrous_kernel<N, 8>, TX * TY, smem); break;
-    default: e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                 per_sm, atrous_kernel<N, 0>, TX * TY, smem);
+    case 1: return launch<N, 1>(a, s);
+    case 2: return launch<N, 2>(a, s);
+    case 4: return launch<N, 4>(a, s);
+    case 8: return launch<N, 8>(a, s);
+    default: return launch<N, 0>(a, s);
   }
-  return static_cast<int>(e);
 }

@@ -373,10 +373,3 @@ RTVB_EXPORT int rtvb_trace(
                  : launch<false>(q, tab, w, out, s);
 }
 
-// blocks of an instance that one SM holds at once for an X × Z world
-RTVB_EXPORT int rtvb_trace_blocks(int any_hit, int X, int Z, int* per_sm) {
-  int sms = 0;
-  const size_t smem = staged_bytes(X, Z);
-  return static_cast<int>(any_hit ? occupancy<true>(smem, per_sm, &sms)
-                                  : occupancy<false>(smem, per_sm, &sms));
-}

@@ -160,11 +160,19 @@ class CudaKernel:
         self.symbol = symbol
         self.argtypes = list(argtypes) + [P]     # + stream
         self.launches = 0
+        self.library = LIBRARY
         self._fn = None
+
+    def use(self, library: Library) -> Library:
+        """Launch from `library` from now on, a build of other sources with
+        the same C entry point (to time two versions of a kernel in
+        turns); returns the library used until now."""
+        prev, self.library, self._fn = self.library, library, None
+        return prev
 
     def _get(self):
         if self._fn is None:
-            fn = getattr(LIBRARY.get(), self.symbol)
+            fn = getattr(self.library.get(), self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = I
             self._fn = fn
@@ -187,21 +195,6 @@ class CudaKernel:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: "
                                f"cudaError {err}")
         self.launches += 1
-
-
-def query_int(device: torch.device, symbol: str, *args: int) -> int:
-    """Call a query of the library, `int symbol(int ..., int* out)`, on
-    `device` and return *out; raises on a nonzero CUDA error.  (Queries
-    launch nothing and count no launch.)"""
-    fn = getattr(LIBRARY.get(), symbol)
-    fn.argtypes = [I] * len(args) + [ctypes.POINTER(I)]
-    fn.restype = I
-    out = I(0)
-    with torch.cuda.device(device):
-        err = fn(*args, ctypes.byref(out))
-    if err != 0:
-        raise RuntimeError(f"{symbol} failed: cudaError {err}")
-    return out.value
 
 
 ALL: dict[str, CudaKernel] = {}

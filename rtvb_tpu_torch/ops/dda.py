@@ -386,12 +386,6 @@ def trace_cuda(o, d, tables: TraceTables, p: TraceParams, t_cap=None,
     return HitRecord(hit != 0, *outs[1:])
 
 
-def resident_blocks(p: TraceParams, any_hit: bool, device) -> int:
-    """Blocks of K1 that one SM of `device` holds at once for this world
-    (K1 launches that many blocks on every SM, or fewer for few rays)."""
-    return K.query_int(device, "rtvb_trace_blocks", int(any_hit), p.x, p.z)
-
-
 def trace(o, d, tables: TraceTables, p: TraceParams, t_cap=None,
           any_hit: bool = False) -> HitRecord:
     """Trace rays against the voxel world: K1 on CUDA tensors, the plain

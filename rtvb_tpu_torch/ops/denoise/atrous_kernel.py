@@ -1,10 +1,12 @@
 """À-trous pass dispatch (port of rtvb_tpu/ops/denoise/atrous_kernel.py).
 
 CUDA tensors launch ``csrc/atrous_kernel.cu`` (K6): 32×8-pixel blocks that
-stage their stencil window (contiguous up to step 4, a sub-lattice of one
-residue class mod the step above) in shared memory, edge-clamped, at any
-step (so no fallback pass), with the same weight formulas op for op as
-`passes.atrous_pass_plain`, which CPU tensors run.
+stage their stencil window (rows of one residue class mod the step, 32
+consecutive columns with a 2·step halo) in shared memory, edge-clamped, at
+any step up to 126 on an H100 (so no fallback pass; a wider step's window
+passes a block's shared memory and the launch raises), with the same
+weight formulas op for op as `passes.atrous_pass_plain`, which CPU tensors
+run.
 """
 from __future__ import annotations
 
@@ -34,11 +36,6 @@ def _atrous_cuda(illum, var, depth, normal, step, phi_lum, phi_normal,
     ATROUS.launch(dev, *args, H, W, int(step), float(phi_lum),
                   float(phi_depth), n_pow, out, out_var)
     return out, out_var
-
-
-def resident_blocks(step: int, device) -> int:
-    """Blocks of K6 that one SM of `device` holds at once at `step`."""
-    return K.query_int(device, "rtvb_atrous_blocks", int(step))
 
 
 def atrous_pass(illum, var, depth, normal, step: int, phi_lum: float,

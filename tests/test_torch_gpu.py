@@ -5,14 +5,15 @@ GPU machine with:  python -m pytest tests/test_torch_gpu.py -m gpu
 Small shapes with ragged edges; K1, K2, K3 and K5 bit-exact (the library
 is built with --fmad=false, so every product rounds like the plain
 version's), K6 to 1e-5 relative; K1 also at the frame's ray-wave shapes,
-on ray counts that fill no whole 32-ray chunk and on an empty ray set; K6 also at every step 1-16 on a 1080p G-buffer, on an
-image smaller than one tile and on an odd size (its shared-memory windows,
-contiguous or on a sub-lattice, with clamped borders); K4 on the six cases
-of chip_smoke.py
-(the frame's own bounce inputs, synthetic lights, blue noise off, the
-generic instance, bounce 1 as the frame calls it) to its
-bar: the int outputs equal on ≥ 99.9% of pixels, the floats within 1e-5
-relative there; K7 (EASU) bit-exact at the rungs' ratios 4:3, 3:2, 2:1 and
+on ray counts that fill no whole 32-ray chunk and on an empty ray set;
+K6 also at every step 1-16, 24 and 32 on a 1080p G-buffer, on an image
+smaller than one tile and on an odd size (its shared-memory windows, with
+clamped borders), at phi_normal 32 and 128 (its generic instance), and
+refusing a step whose window passes a block's shared memory; K4 on the
+six cases of chip_smoke.py (the frame's own bounce inputs, synthetic
+lights, blue noise off, the generic instance, bounce 1 as the frame calls
+it) to its bar: the int outputs equal on ≥ 99.9% of pixels, the floats
+within 1e-5 relative there; K7 (EASU) bit-exact at the rungs' ratios 4:3, 3:2, 2:1 and
 a mixed per-axis one, on images with flat patches (no direction)."""
 import numpy as np
 import pytest
@@ -203,20 +204,50 @@ def _atrous_inputs(H, W, seed, device):
                  for t in (illum, var, depth, normal))
 
 
-@pytest.mark.parametrize("step", list(range(1, 17)))
+def _atrous_against_plain(args, step, phi_normal):
+    from rtvb_tpu_torch.ops.denoise import atrous_kernel, passes
+    a = atrous_kernel._atrous_cuda(*args, step, 2.0, phi_normal, 0.05)
+    b = passes.atrous_pass_plain(*args, step, 2.0, phi_normal, 0.05)
+    for x, y in zip(a, b):
+        np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-7)
+
+
+# steps 1-16, and 24 and 32, whose windows pass the default 48 KB of
+# shared memory
+@pytest.mark.parametrize("step", list(range(1, 17)) + [24, 32])
 @pytest.mark.parametrize("image", ["1080p", "7x13", "1919x1079"])
 def test_atrous_kernel_windows(cuda, gbuffer_1080p, image, step):
-    from rtvb_tpu_torch.ops.denoise import atrous_kernel, passes
     if image == "1080p":
         args = gbuffer_1080p
     else:
         W, H = map(int, image.split("x"))
         args = _atrous_inputs(H, W, step, cuda)
-    a = atrous_kernel._atrous_cuda(*args, step, 2.0, 64.0, 0.05)
-    b = passes.atrous_pass_plain(*args, step, 2.0, 64.0, 0.05)
-    for x, y in zip(a, b):
-        np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(),
-                                   rtol=1e-5, atol=1e-7)
+    _atrous_against_plain(args, step, 64.0)
+
+
+# phi_normal other than the shipped 64: the generic instance, its
+# squarings counted at run time
+@pytest.mark.parametrize("step", [1, 3, 8, 24, 32])
+@pytest.mark.parametrize("phi_normal", [32.0, 128.0])
+@pytest.mark.parametrize("image", ["7x13", "1919x1079"])
+def test_atrous_kernel_generic_instance(cuda, image, phi_normal, step):
+    W, H = map(int, image.split("x"))
+    _atrous_against_plain(_atrous_inputs(H, W, step, cuda), step,
+                          phi_normal)
+
+
+def test_atrous_kernel_refuses_a_window_past_shared_memory(cuda):
+    # step 126's window is the widest that fits the 227 KB a block may
+    # hold on an H100; step 127's is refused before anything launches
+    from rtvb_tpu_torch.ops.denoise import atrous_kernel
+    args = _atrous_inputs(40, 300, 3, cuda)
+    before = atrous_kernel.ATROUS.launches
+    with pytest.raises(RuntimeError):
+        atrous_kernel._atrous_cuda(*args, 127, 2.0, 64.0, 0.05)
+    assert atrous_kernel.ATROUS.launches == before
+    # the refusal leaves no error behind for the next launch
+    _atrous_against_plain(args, 126, 64.0)
 
 
 def test_wrapper_raises_on_wrong_input(cuda):
