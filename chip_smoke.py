@@ -14,12 +14,15 @@
    the GI shapes and sun shadow rays, its bound counting the sub-steps
    these rays march (the plain version's tally); K6 (à-trous) on the
    frame's own four passes (steps 1, 2, 4, 8), at steps 16 and 32, and at
-   phi_normal 32 (its generic instance); a frame's time of K1, K4 and K6
-   summed from the launches the frame makes; K5 nearest against
+   phi_normal 32 (its generic instance); K2 (triangles) on the frame's
+   own five launches as captured (bounces 0-2 and the two shadow waves),
+   the scene camera's rays and random rays; a frame's time of K1, K2, K4
+   and K6 summed from the launches the frame makes; K5 nearest against
    grid_sample in 7 rounds of 20 calls, the order reversed every round;
-   registers and spills from the ptxas report, and K1's and
-   K6's resident blocks an SM computed from them; K4 (fused shade) on the
-   frame's own bounce-0 and bounce-1 inputs: (a) as the frame calls it,
+   registers, stack frames and spills from the ptxas report, and K1's,
+   K2's, K4's and K6's resident blocks an SM computed from them; K4
+   (fused shade) on the frame's own bounce-0 and bounce-1 inputs: (a) as
+   the frame calls it,
    (b) with a synthetic 200-slot light table, 8 candidates, 3 taps and
    entity MIS, (c) at 960×540 with 2 candidates and no taps, (d) with blue
    noise off, (e) with 5 candidates and 2 taps (the kernel's generic
@@ -249,12 +252,15 @@ def exact(fields):
 
 
 def capture_frame_calls(eng):
-    """The K1 and K6 calls of one frame of `eng` (it advances the engine's
-    state like any frame), their tensors copied: ([(o, d, t_cap,
-    any_hit)], [(illum, var, depth, normal, step, phis)]) in call order."""
+    """The K1, K6 and K2 calls of one frame of `eng` (it advances the
+    engine's state like any frame), their tensors copied: ([(o, d, t_cap,
+    any_hit)], [(illum, var, depth, normal, step, phis)], [(o, d, tri,
+    t_cap)]) in call order."""
+    from rtvb_tpu_torch.ops import triangles
     from rtvb_tpu_torch.render import denoiser, pathtracer
-    traces, atrous = [], []
+    traces, atrous, tris = [], [], []
     orig_trace, orig_atrous = pathtracer.trace, denoiser.atrous_pass
+    orig_tri = triangles.intersect_packed
 
     def rec_trace(o, d, tables, tp, t_cap=None, any_hit=False):
         traces.append((tuple(c.clone() for c in o),
@@ -266,12 +272,20 @@ def capture_frame_calls(eng):
         atrous.append((illum.clone(), var.clone(), depth.clone(),
                        normal.clone(), step, phis))
         return orig_atrous(illum, var, depth, normal, step, *phis)
+
+    def rec_tri(o, d, tri, t_cap=None):
+        tris.append((tuple(c.clone() for c in o),
+                     tuple(c.clone() for c in d), tri.clone(),
+                     None if t_cap is None else t_cap.clone()))
+        return orig_tri(o, d, tri, t_cap)
     pathtracer.trace, denoiser.atrous_pass = rec_trace, rec_atrous
+    triangles.intersect_packed = rec_tri
     try:
         eng.render_realtime_device()
     finally:
         pathtracer.trace, denoiser.atrous_pass = orig_trace, orig_atrous
-    return traces, atrous
+        triangles.intersect_packed = orig_tri
+    return traces, atrous, tris
 
 
 def trace_inputs(eng, traces) -> dict:
@@ -298,18 +312,10 @@ def trace_inputs(eng, traces) -> dict:
     dev = eng.device
     H, W = eng.height, eng.width
     gen = torch.Generator(device="cpu").manual_seed(7)
-
-    def rays(h, w):
-        u = torch.rand(3, h, w, generator=gen)
-        o = (u[0] * 64.0, u[1] * 19.0 + 1.0, u[2] * 64.0)
-        d = torch.randn(3, h, w, generator=gen)
-        d = d / d.norm(dim=0, keepdim=True)
-        return (tuple(c.contiguous().to(dev) for c in o),
-                tuple(c.contiguous().to(dev) for c in d))
     h2, w2 = H // 2, W // 2
-    ro, rd = rays(h2, w2)
+    ro, rd = random_rays(gen, h2, w2, dev)
     cases[f"random rays {w2}x{h2}, closest"] = (ro, rd, None, False)
-    bo, bd = rays(2 * h2, w2)
+    bo, bd = random_rays(gen, 2 * h2, w2, dev)
     bcap = (torch.rand(2 * h2, w2, generator=gen) * 59.5 + 0.5).to(dev)
     cases[f"random rays {w2}x{2 * h2}, any hit"] = (bo, bd, bcap, True)
     o, d = camera_rays(eng.camera, W, H)
@@ -324,6 +330,61 @@ def trace_inputs(eng, traces) -> dict:
     cap = torch.where(rec.hit, 1e30, 0.0).contiguous()
     cases[f"sun shadow rays {W}x{H}, any hit"] = (so, sun, cap, True)
     return cases
+
+
+def random_rays(gen, h, w, dev):
+    """(o, d) of h×w random rays over the world (64 × 20 × 64)."""
+    import torch
+    u = torch.rand(3, h, w, generator=gen)
+    o = (u[0] * 64.0, u[1] * 19.0 + 1.0, u[2] * 64.0)
+    d = torch.randn(3, h, w, generator=gen)
+    d = d / d.norm(dim=0, keepdim=True)
+    return (tuple(c.contiguous().to(dev) for c in o),
+            tuple(c.contiguous().to(dev) for c in d))
+
+
+def tri_inputs(eng, tris) -> dict:
+    """K2's cases: {label: (o, d, tri, t_cap)}.  First the frame's five
+    launches as captured (bounces 0-2 against the soup, capped at the
+    voxel hit; bounce 0's shadow rays and bounces 1-2's batched, capped
+    at the light and the voxel occluder), then the scene camera's rays
+    capped at their voxel hit and K1's random rays at the GI shape."""
+    import torch
+    from rtvb_tpu_torch.core.camera import camera_rays
+    from rtvb_tpu_torch.ops import dda
+    bounces = eng.settings.rendering.total_bounce_limit
+    check(len(tris) == bounces + 2, f"{len(tris)} K2 calls in a frame")
+    cases = {}
+    for i, (o, d, tri, cap) in enumerate(tris):
+        h, w = o[0].shape
+        what = (f"bounce {i} closest" if i < bounces else
+                "bounce 0 shadows" if i == bounces else
+                "bounces 1-2 shadows batched")
+        cases[f"frame {what} {w}x{h}"] = (o, d, tri, cap)
+    dev = eng.device
+    H, W = eng.height, eng.width
+    tri = eng.entity_buffers().tri_packed
+    o, d = camera_rays(eng.camera, W, H)
+    o = tuple(c.contiguous() for c in o)
+    d = tuple(c.contiguous() for c in d)
+    t_cap = dda.trace(o, d, eng._tables, eng._tp).t.contiguous()
+    n = tri.shape[0]
+    cases[f"{n} tris, camera rays {W}x{H}"] = (o, d, tri, t_cap)
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    h2, w2 = H // 2, W // 2
+    ro, rd = random_rays(gen, h2, w2, dev)     # K1's random closest rays
+    cases[f"{n} tris, random rays {w2}x{h2}"] = (ro, rd, tri, None)
+    return cases
+
+
+def tri_work(o, tri, cap):
+    """(bytes, ops) of one K2 launch: the rays (24 B) and their cap where
+    the call passes one (4 B) in, the record out (the 1-byte hit, t, the
+    triangle and u, v: 17 B), the soup once; Möller–Trumbore is 27 flops
+    per ray and triangle."""
+    n_rays = o[0].numel()
+    return (n_rays * (24 + 4 * (cap is not None) + 17) + nbytes(tri),
+            27 * n_rays * tri.shape[0])
 
 
 def atrous_inputs(eng, atrous) -> dict:
@@ -386,7 +447,7 @@ def trace_work(eng, o, d, cap, any_hit):
             n_sub)
 
 
-def kernel_cases(eng, rep: Report, traces, atrous):
+def kernel_cases(eng, rep: Report, traces, atrous, tris):
     """K1, K2, K3, K5, K6 against their plain versions on CUDA inputs taken
     from the engine's frame (its size, half of it for the GI waves)."""
     import torch
@@ -419,8 +480,6 @@ def kernel_cases(eng, rep: Report, traces, atrous):
     n = (rec.nx, rec.ny, rec.nz)
     substeps = {}
     k1 = trace_inputs(eng, traces)
-    h2, w2 = H // 2, W // 2
-    ro, rd = k1[f"random rays {w2}x{h2}, closest"][:2]
     for label, (to, td, tc, ah) in k1.items():
         n_bytes, n_ops, n_sub = trace_work(eng, to, td, tc, ah)
         substeps[label] = dict(rays=to[0].numel(), substeps=n_sub)
@@ -434,23 +493,15 @@ def kernel_cases(eng, rep: Report, traces, atrous):
                  exact(("hit", "t") if ah else dda.HitRecord._fields),
                  (n_bytes, n_ops))
 
-    # --- K2: the flower soup against the primary rays, capped at the voxel
-    tri = eng.entity_buffers().tri_packed
-    t_cap = rec.t.contiguous()
-
-    def tri_work(n_rays, capped):
-        # rays (+ cap) in, hit / t / tri / u / v out, the soup once;
-        # Möller–Trumbore is 27 flops per ray and triangle
-        return (n_rays * (24 + 4 * capped + 17) + nbytes(tri),
-                27 * n_rays * tri.shape[0])
-    rep.case("tri", f"{tri.shape[0]} tris, camera rays {W}x{H}",
-             lambda: triangles.intersect_packed_cuda(o, d, tri, t_cap),
-             lambda: triangles.intersect_packed_plain(o, d, tri, t_cap),
-             exact(triangles.TriHit._fields), tri_work(H * W, True))
-    rep.case("tri", f"{tri.shape[0]} tris, random rays {w2}x{h2}",
-             lambda: triangles.intersect_packed_cuda(ro, rd, tri),
-             lambda: triangles.intersect_packed_plain(ro, rd, tri),
-             exact(triangles.TriHit._fields), tri_work(h2 * w2, False))
+    # --- K2: the frame's five launches, then the flower soup against the
+    # scene camera's rays and random rays
+    for label, (to, td, tt, tc) in tri_inputs(eng, tris).items():
+        rep.case("tri", label,
+                 lambda a=(to, td, tt, tc): triangles.intersect_packed_cuda(
+                     *a),
+                 lambda a=(to, td, tt, tc): triangles.intersect_packed_plain(
+                     *a),
+                 exact(triangles.TriHit._fields), tri_work(to, tt, tc))
 
     # --- K3: the authored atlas at the frame's primary-hit lod field
     mats = eng.materials
@@ -1063,9 +1114,9 @@ def dynres_walk(eng, K, n_frames: int = 30) -> dict:
 
 
 def ptxas_report(build_log: str) -> list:
-    """Registers, static shared memory and spills of each kernel entry in
-    nvcc's -Xptxas -v output: [{kernel, registers, smem, spill_stores,
-    spill_loads}]."""
+    """Registers, static shared memory, stack frame and spills of each
+    kernel entry in nvcc's -Xptxas -v output: [{kernel, registers, smem,
+    stack_frame, spill_stores, spill_loads}]."""
     import re
     out, name = [], None
     for line in build_log.splitlines():
@@ -1073,11 +1124,12 @@ def ptxas_report(build_log: str) -> list:
         if m:
             name = m.group(1)
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m and name:
-            out.append(dict(kernel=name, spill_stores=int(m.group(1)),
-                            spill_loads=int(m.group(2))))
+            out.append(dict(kernel=name, stack_frame=int(m.group(1)),
+                            spill_stores=int(m.group(2)),
+                            spill_loads=int(m.group(3))))
             continue
         m = re.search(r"Used (\d+) registers", line)
         if m and out and out[-1]["kernel"] == name:
@@ -1105,16 +1157,30 @@ def blocks_per_sm(registers: int, threads: int, smem: int) -> int:
 
 
 def resident_blocks(eng, ptxas: list) -> dict:
-    """Blocks of K1 and K6 an SM holds at once at the frame's settings (the
-    grid K1 launches is this times the SM count): each instance's ptxas
-    registers and static shared memory, plus the dynamic shared memory
-    its launch asks for (K1: the column masks and the two 128-slot
-    supercolumn tables; K6: nine planes of a 12-row window, 32 + 4·step
-    columns wide), under the SM's limits."""
+    """Blocks of K1, K2, K4 and K6 an SM holds at once at the frame's
+    settings (the grid K1 and K2 launch is this times the SM count): each
+    instance's ptxas registers and static shared memory, plus the dynamic
+    shared memory its launch asks for (K1: the column masks and the two
+    128-slot supercolumn tables; K2: the flower soup, 36 B a triangle; K6:
+    nine planes of a 12-row window, 32 + 4·step columns wide), under the
+    SM's limits.  K4's generic instance at case (e)'s counts."""
     import re
     out = {}
     tp = eng._tp
+    n_tri = eng.entity_buffers().tri_packed.shape[0]
     for r in ptxas:
+        if re.search(r"tri_kernel", r["kernel"]):
+            out["tri"] = blocks_per_sm(r["registers"], 256,
+                                       r["smem"] + 36 * n_tri)
+        m = re.search(r"shade_kernelILi(n?\d+)ELi(n?\d+)ELb([01])E",
+                      r["kernel"])
+        if m:
+            nl, nt = (int(g.replace("n", "-")) for g in m.group(1, 2))
+            bn = m.group(3) == "1"
+            nt_case, nl_case = (2, 5) if nt < 0 else (nt, nl)
+            out[f"shade n_local={nl_case} n_taps={nt_case} blue_noise={bn}"
+                + (" (generic)" if nt < 0 else "")] = blocks_per_sm(
+                    r["registers"], 128, r["smem"])
         m = re.search(r"trace_kernelILb([01])E", r["kernel"])
         if m:
             staged = 4 * (tp.x * tp.z + 2 * 128)
@@ -1208,16 +1274,16 @@ def main() -> int:
     ptxas = ptxas_report(K.LIBRARY.build_log or "")
     for r in ptxas:
         log(f"ptxas {r['kernel']}: {r['registers']} registers, "
-            f"{r['spill_stores']} B spill stores, {r['spill_loads']} B "
-            f"spill loads")
+            f"{r['stack_frame']} B stack frame, {r['spill_stores']} B spill "
+            f"stores, {r['spill_loads']} B spill loads")
     occupancy = resident_blocks(eng, ptxas)
     log(f"resident blocks an SM (registers and shared memory against the "
         f"SM's limits): {occupancy}")
     log("kernels against their plain versions (CUDA events, median of 10):")
     rep = Report()
-    traces, atrous = capture_frame_calls(eng)
-    substeps = kernel_cases(eng, rep, traces, atrous)
-    del traces, atrous
+    traces, atrous, tris = capture_frame_calls(eng)
+    substeps = kernel_cases(eng, rep, traces, atrous, tris)
+    del traces, atrous, tris
     k5_rounds = warp_vs_grid_sample(eng)
     shade_diffs = shade_kernel_cases(eng, rep)
     # K7 on the tone-mapped frame each rung hands to EASU, and on a mixed
@@ -1344,9 +1410,10 @@ def main() -> int:
     check(K.launch_counts()["easu"] > easu0, "the 2/3-rung frame vs the "
           "CPU did not launch K7")
 
-    # a frame's time of K1, K4 and K6 from the launches the frame makes:
-    # K1's five waves and K6's four steps as captured; K4 bounce 0 (case
-    # a) and bounces 1-2 (case f, the same instance and shape for both)
+    # a frame's time of K1, K2, K4 and K6 from the launches the frame
+    # makes: K1's and K2's five waves and K6's four steps as captured; K4
+    # bounce 0 (case a) and bounces 1-2 (case f, the same instance and
+    # shape for both)
     def frame_sum(label, cases):
         tot = {k: sum(c[k] for c in cases)
                for k in ("ms", "plain_ms", "bound_ms")}
@@ -1360,6 +1427,9 @@ def main() -> int:
         "trace": frame_sum("K1, its five waves", [
             c for c in rep.cases
             if c["kernel"] == "trace" and c["case"].startswith("frame")]),
+        "tri": frame_sum("K2, its five waves", [
+            c for c in rep.cases
+            if c["kernel"] == "tri" and c["case"].startswith("frame")]),
         "shade": frame_sum("K4, case (a) + 2 x case (f)", [sa, sf, sf]),
         "atrous": frame_sum("K6, steps 1, 2, 4, 8", [
             c for c in rep.cases

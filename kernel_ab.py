@@ -95,7 +95,7 @@ def main() -> int:
         eng = Engine(settings=Settings().replace(rendering={
             "render_width": fw, "render_height": fh}), device="cuda")
         eng.render_realtime_device()
-        traces, atrous = S.capture_frame_calls(eng)
+        traces, atrous, _ = S.capture_frame_calls(eng)
         tables, tp = eng._tables, eng._tp
 
         def on(label, handle, run):
