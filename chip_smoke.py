@@ -1156,13 +1156,25 @@ def blocks_per_sm(registers: int, threads: int, smem: int) -> int:
                SM_SHARED // (smem + BLOCK_RESERVED))
 
 
+# K4's staging (csrc/shade_kernel.cu TILE): a 128-pixel tile of every
+# input plane in shared memory
+SHADE_TILE = 128
+
+
+def shade_planes(n_taps: int, blue_noise: bool) -> int:
+    """Input planes of a K4 launch: 15 surface planes, the depth and 9 a
+    tap when it has taps, 4 blue-noise words."""
+    return 15 + (1 + 9 * n_taps if n_taps else 0) + 4 * blue_noise
+
+
 def resident_blocks(eng, ptxas: list) -> dict:
     """Blocks of K1, K2, K4 and K6 an SM holds at once at the frame's
     settings (the grid K1 and K2 launch is this times the SM count): each
     instance's ptxas registers and static shared memory, plus the dynamic
     shared memory its launch asks for (K1: the column masks and the two
-    128-slot supercolumn tables; K2: the flower soup, 36 B a triangle; K6:
-    nine planes of a 12-row window, 32 + 4·step columns wide), under the
+    128-slot supercolumn tables; K2: the flower soup, 36 B a triangle and
+    24 B a box of 4; K6: nine planes of a 12-row window, 32 + 4·step
+    columns wide; K4: a 128-pixel tile of its input planes), under the
     SM's limits.  K4's generic instance at case (e)'s counts."""
     import re
     out = {}
@@ -1170,17 +1182,18 @@ def resident_blocks(eng, ptxas: list) -> dict:
     n_tri = eng.entity_buffers().tri_packed.shape[0]
     for r in ptxas:
         if re.search(r"tri_kernel", r["kernel"]):
-            out["tri"] = blocks_per_sm(r["registers"], 256,
-                                       r["smem"] + 36 * n_tri)
+            out["tri"] = blocks_per_sm(r["registers"], 256, r["smem"]
+                                       + 36 * n_tri + 24 * -(-n_tri // 4))
         m = re.search(r"shade_kernelILi(n?\d+)ELi(n?\d+)ELb([01])E",
                       r["kernel"])
         if m:
             nl, nt = (int(g.replace("n", "-")) for g in m.group(1, 2))
             bn = m.group(3) == "1"
             nt_case, nl_case = (2, 5) if nt < 0 else (nt, nl)
+            staged = 4 * SHADE_TILE * shade_planes(nt_case, bn)
             out[f"shade n_local={nl_case} n_taps={nt_case} blue_noise={bn}"
                 + (" (generic)" if nt < 0 else "")] = blocks_per_sm(
-                    r["registers"], 128, r["smem"])
+                    r["registers"], SHADE_TILE, r["smem"] + staged)
         m = re.search(r"trace_kernelILb([01])E", r["kernel"])
         if m:
             staged = 4 * (tp.x * tp.z + 2 * 128)

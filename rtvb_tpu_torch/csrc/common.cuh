@@ -69,4 +69,40 @@ inline int blocks_for(long long n, int threads) {
 // a launch that was refused never runs; report it to the wrapper
 inline int launch_status() { return static_cast<int>(cudaGetLastError()); }
 
+// the grid of a persistent kernel: as many blocks of `threads` as the card
+// holds at once with `smem` bytes of dynamic shared memory, no more than
+// `want`.  `cache` (a static of the caller's, one per kernel) keeps the
+// answer for the current device and shared-memory size.
+struct GridCache {
+  int device = -1;
+  size_t smem = 0;
+  int blocks = 0;
+};
+
+template <class Kernel>
+cudaError_t persistent_grid(GridCache& cache, Kernel kern, int threads,
+                            size_t smem, long long want, int* grid) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (cache.device != dev || cache.smem != smem) {
+    // past the default 48 KB only by opting in
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    int per_sm = 0, sms = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
+                                                      smem);
+    if (e != cudaSuccess) return e;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    if (per_sm == 0) return cudaErrorInvalidConfiguration;
+    cache.device = dev;
+    cache.smem = smem;
+    cache.blocks = per_sm * sms;
+  }
+  *grid = static_cast<int>(cache.blocks < want ? cache.blocks : want);
+  return cudaSuccess;
+}
+
 }  // namespace rtvb

@@ -8,31 +8,62 @@
 // over `_fused_body`).  Plain version: rtvb_tpu_torch/render/ris_kernel.py
 // `fused_shade_plain`; device math in shade_math.cuh.
 //
-// What bounds it on Hopper: memory traffic at the frame's sizes.  Bounce 0
-// at 1920×1080 with 3 taps and blue noise reads 15 + 1 + 3·9 + 4 = 47
-// planes and writes 26: 73 × 4 B × 2,073,600 px ≈ 605 MB, ≈ 0.18 ms at
-// 3.35 TB/s; the half-res bounces (19 in, 26 out) ≈ 93 MB, ≈ 0.03 ms.  The
-// arithmetic (a few hundred flops a pixel, a dozen transcendentals per
-// candidate) stays below the bytes unless n_local is large.  Design: one
-// thread per pixel, blocks of 128 over the flat pixel index, every input
-// plane read once, coalesced; the per-frame tables (the 72-float sky / sun
-// vector, the env alias rows, the blue-noise Sobol terms of this launch's
-// dimensions) are staged in shared memory per block; the light table
-// (18 + 3 rows × K slots) is read through the read-only cache, so K and the
-// env map have none of the TPU's one-lane-row limits.  The random numbers
-// are drawn in the kernel in the plain version's order (native uint32
-// PCG, or the blue-noise byte planes).  The tap combine runs in two passes
-// — the confidence sum first, then each tap decoded again and merged — so
-// no tap's 11 values stay live across the others.  The shipped frame's
-// (n_local, n_taps) pairs are compile-time instances with unrolled loops;
-// any other pair runs the generic instance with runtime counts.
+// What bounds it on Hopper: the issue of a long body, not its bytes.
+// Bounce 0 at 1920×1080 with 3 taps and blue noise reads 15 + 1 + 3·9 + 4
+// = 47 planes and writes 26: 73 × 4 B × 2,073,600 px ≈ 605 MB, ≈ 0.18 ms at
+// 3.35 TB/s; the half-res bounces (19 in, 26 out) ≈ 93 MB, ≈ 0.03 ms.  But
+// a pixel runs ~5,000 instructions under --fmad=false (the bounce-0
+// instance's SASS is ~4,400 with the BSDF proxy called up to six times,
+// the full BSDF twice, IEEE divisions and square roots, accurate
+// sin / cos / exp): ≈ 0.35 ms of issue at one instruction a clock on each
+// of the card's 528 schedulers.  The first kernel (one thread a pixel,
+// planes read where the body needs them, every tap twice) ran 0.4869 ms,
+// and bounce 1, with 19 planes in, 2.9× its byte bound.  Design:
+// - persistent blocks walk 128-pixel tiles (grid: the blocks the card holds
+//   at once); a block's tile of every input plane comes into shared memory
+//   by bulk asynchronous copies (cp.async.bulk, one 512-byte copy a plane,
+//   issued by one thread and completing on the block's mbarrier).  The
+//   last warp done with the tile issues the block's next one; the other
+//   blocks on the SM compute meanwhile;
+// - each tap is read once from device memory: both passes of the combine
+//   read the staged tile;
+// - a plane whose base is not 16-byte aligned, and the ragged last tile,
+//   come in by each thread's own loads into its pixel's slots instead;
+// - 26 planes out by plain coalesced stores (a warp writes 128 B a plane);
+// - __launch_bounds__(128, 6): the first kernel's 24 warps an SM (≤ 80
+//   registers; a bounce-0 tile is 24 KB).  Two stages (tile i+1's copies
+//   in flight while tile i is shaded) take 48 KB a bounce-0 block, so 4
+//   blocks an SM, and ran 8% slower than the first kernel; one tile at
+//   6 blocks runs as fast (kernel_ab.py, NVIDIA H100 80GB HBM3, 700 W).
+//   A few instances keep 4-20 bytes of spill there: (128, 5) spills none
+//   and ran bounce 0 2% slower;
+// - bit-exact savings in the body: an invalid tap skips its BSDF proxy
+//   (its target pdf is 0), a tap that is not a local light skips the
+//   light table, and sin and cos of one angle come from one sincosf (one
+//   argument reduction): the same bits as the two calls the plain version
+//   makes (the gpu tests check every angle in [0, 2π]).
+// The per-frame tables (the 72-float sky / sun vector, the env alias rows,
+// the blue-noise Sobol terms of this launch's dimensions) are staged in
+// shared memory once a block; the light table (18 + 3 rows × K slots) is
+// read through the read-only cache, so K and the env map have none of the
+// TPU's one-lane-row limits.  The random numbers are drawn in the
+// plain version's order (native uint32 PCG, or the blue-noise byte
+// planes).  The combine's two passes (the confidence sum, then each tap
+// decoded again and merged) keep no tap's 11 values live across the
+// others.  The shipped frame's (n_local, n_taps) pairs are compile-time
+// instances with unrolled loops; any other pair runs the generic instance
+// with runtime counts.
 #include "shade_math.cuh"
 
 namespace {
 
 using namespace rtvb::shade;
 
-constexpr int THREADS = 128;
+constexpr int THREADS = 128;               // one pixel a thread
+constexpr int WARPS = THREADS / 32;
+constexpr int TILE = THREADS;              // pixels of a staged tile
+constexpr int MIN_BLOCKS = 6;              // blocks an SM: ≤ 80 registers
+constexpr uint32_t PLANE_BYTES = TILE * sizeof(float);
 constexpr int MAX_TAPS = 4;                // ris_kernel.MAX_TAPS
 constexpr int MAX_LOCAL = 16;              // ris_kernel.MAX_LOCAL
 constexpr int MAX_DRAWS = 5 * MAX_LOCAL + 10 + MAX_TAPS;
@@ -46,10 +77,17 @@ constexpr int LF_V0X = 0, LF_E1X = 3, LF_E2X = 6, LF_NX = 9, LF_AREA = 12,
 constexpr int LI_ALIAS = 0, LI_ENT = 1, LI_REMAP = 2;
 constexpr float INV_ENV_OMEGA = 5.092958178940651f;   // float(1/(2π/32))
 
+// input planes of a launch: the surface, the depth and 9 a tap when it
+// has taps, the 4 blue-noise words
+__host__ __device__ constexpr int planes_in(int n_taps, bool bn) {
+  return 15 + (n_taps > 0 ? 1 + 9 * n_taps : 0) + (bn ? 4 : 0);
+}
+
 struct ShadeIO {
   const float* in[N_IN_MAX];
   float* out_f[N_OUT_F];
   int* out_i[N_OUT_I];
+  unsigned long long bulk;     // bit k: plane k's base is 16-byte aligned
 };
 
 struct ShadeParams {
@@ -59,11 +97,78 @@ struct ShadeParams {
   const float* envf;
   const int* envi;
   const uint32_t* basis;
-  int HW, W, y0, K, n_local, n_taps, base_dim, n_draws;
+  int HW, W, y0, K, n_local, n_taps, base_dim, n_draws, n_in, n_tiles;
   uint32_t frame;
   bool ent_unreachable;
   float m_cap, dis_thr;
 };
+
+// ---------------------------------------------------------------------------
+// bulk asynchronous copies and their mbarriers (PTX, sm_90)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+}
+// global → shared, `bytes` a multiple of 16, both addresses 16-byte aligned
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// one thread: the bulk copies of `tile`'s planes into the block's tile (the
+// aligned planes of a whole tile; none for the ragged last tile), or a
+// bare arrival
+__device__ __forceinline__ void issue_tile(const ShadeIO& io,
+                                           const ShadeParams& P, int n_in,
+                                           int tile, float* planes,
+                                           uint64_t* bar) {
+  const bool whole = (tile + 1) * TILE <= P.HW;
+  const uint32_t bytes = whole ? __popcll(io.bulk) * PLANE_BYTES : 0u;
+  if (bytes == 0u) {
+    mbar_arrive(bar);
+    return;
+  }
+  mbar_arrive_tx(bar, bytes);
+  const size_t at = static_cast<size_t>(tile) * TILE;
+  for (int k = 0; k < n_in; ++k)
+    if ((io.bulk >> k) & 1ull)
+      bulk_load(planes + k * TILE, io.in[k] + at, PLANE_BYTES, bar);
+}
 
 struct Reservoir {
   int kind, slot;
@@ -130,95 +235,96 @@ struct Tap {
   bool valid;
 };
 
-// tap t's stored reservoir at this pixel; `full` also reconstructs the
-// sample at the current surface (pass 2), else only validity and capped M
-__device__ __forceinline__ Tap decode_tap(const Ctx& c, const ShadeIO& io,
-                                          int t, int pix, float depth,
-                                          bool full) {
-  const float* const* pl = io.in + 16 + 9 * t;
-  auto word = [&](int k) { return __float_as_uint(__ldg(pl[k] + pix)); };
+// tap t's stored reservoir at this pixel, from its staged planes `pl`
+// (plane k at pl[k * TILE]); `full` also reconstructs the sample at the
+// current surface (pass 2), else only validity and capped M
+__device__ __forceinline__ Tap decode_tap(const Ctx& c, const float* pl,
+                                          float depth, bool full) {
+  auto word = [&](int k) { return __float_as_uint(pl[k * TILE]); };
   Tap tp;
   const int w0 = static_cast<int>(word(0));
   tp.kind = w0 & 3;
   int pslot = w0 >> 2;
   const uint32_t m_le = word(4);
   const float pM = rtvb::bf16_lo(m_le);
-  const float pdepth = __ldg(pl[5] + pix);
+  const float pdepth = pl[5 * TILE];
   const uint32_t nw = word(6);
   const V3 pn = octa_decode(rtvb::bf16_lo(nw), rtvb::bf16_hi(nw));
-  const int tvalid = __float_as_int(__ldg(pl[8] + pix));
+  const int tvalid = __float_as_int(pl[8 * TILE]);
   const bool depth_ok = fabsf(pdepth - depth) <=
                         c.P.dis_thr * clamp_min(depth, 1.0f);
   const bool normal_ok = dot(pn, c.n) > 0.8f;
   bool valid = (tvalid != 0) && depth_ok && normal_ok && (tp.kind != 0) &&
                (depth < rtvb::BIG);
-  const int remapped = c.li(LI_REMAP, pslot);
+  // the light-slot remap and the light table matter to local samples only
   const bool is_local = tp.kind == KIND_LOCAL;
-  valid = valid && !(is_local && remapped < 0);
-  if (is_local) pslot = remapped > 0 ? remapped : 0;
+  if (is_local) {
+    const int remapped = c.li(LI_REMAP, pslot);
+    valid = valid && remapped >= 0;
+    pslot = remapped > 0 ? remapped : 0;
+  }
   tp.slot = pslot;
   tp.valid = valid;
   tp.M = valid ? clamp_max(pM, c.P.m_cap) : 0.0f;
   if (!full) return tp;
 
-  const uint32_t fw = word(1), dw = word(2), lw = word(7);
+  const uint32_t fw = word(1);
   tp.fa = rtvb::bf16_lo(fw);
   tp.fb = rtvb::bf16_hi(fw);
-  const V3 pdir = octa_decode(rtvb::bf16_lo(dw), rtvb::bf16_hi(dw));
-  tp.W = __ldg(pl[3] + pix);
-  const V3 lp = {
-      c.lf(LF_V0X, pslot) + tp.fa * c.lf(LF_E1X, pslot) +
-          tp.fb * c.lf(LF_E2X, pslot),
-      c.lf(LF_V0X + 1, pslot) + tp.fa * c.lf(LF_E1X + 1, pslot) +
-          tp.fb * c.lf(LF_E2X + 1, pslot),
-      c.lf(LF_V0X + 2, pslot) + tp.fa * c.lf(LF_E1X + 2, pslot) +
-          tp.fb * c.lf(LF_E2X + 2, pslot)};
-  const V3 to_l = sub(lp, c.p);
-  const float d2 = clamp_min(dot(to_l, to_l), 1e-6f);
-  const float inv_d = rsqrtf(d2);
-  const bool is_dist = tp.kind == KIND_SUN || tp.kind == KIND_SKY;
+  tp.W = pl[3 * TILE];
   if (is_local) {
+    const V3 lp = {
+        c.lf(LF_V0X, pslot) + tp.fa * c.lf(LF_E1X, pslot) +
+            tp.fb * c.lf(LF_E2X, pslot),
+        c.lf(LF_V0X + 1, pslot) + tp.fa * c.lf(LF_E1X + 1, pslot) +
+            tp.fb * c.lf(LF_E2X + 1, pslot),
+        c.lf(LF_V0X + 2, pslot) + tp.fa * c.lf(LF_E1X + 2, pslot) +
+            tp.fb * c.lf(LF_E2X + 2, pslot)};
+    const V3 to_l = sub(lp, c.p);
+    const float d2 = clamp_min(dot(to_l, to_l), 1e-6f);
+    const float inv_d = rsqrtf(d2);
     tp.wi = scale(to_l, inv_d);
     tp.dist = d2 * inv_d;
     tp.le = {c.lf(LF_RADR, pslot), c.lf(LF_RADR + 1, pslot),
              c.lf(LF_RADR + 2, pslot)};
   } else {
-    tp.wi = pdir;
+    const uint32_t dw = word(2), lw = word(7);
+    const bool is_dist = tp.kind == KIND_SUN || tp.kind == KIND_SKY;
+    tp.wi = octa_decode(rtvb::bf16_lo(dw), rtvb::bf16_hi(dw));
     tp.dist = rtvb::BIG;
     tp.le = is_dist ? V3{rtvb::bf16_lo(lw), rtvb::bf16_hi(lw),
                          rtvb::bf16_hi(m_le)}
                     : V3{0.0f, 0.0f, 0.0f};
   }
-  const EvalLum el = eval_lum(c.mat, c.n, c.wo, tp.wi);
-  const float cos_i = clamp_min(dot(c.n, tp.wi), 0.0f);
-  tp.phat = valid ? el.f * cos_i * lum(tp.le) : 0.0f;
+  // an invalid tap's target pdf is 0 and its sample is never taken
+  tp.phat = 0.0f;
+  if (valid) {
+    const EvalLum el = eval_lum(c.mat, c.n, c.wo, tp.wi);
+    const float cos_i = clamp_min(dot(c.n, tp.wi), 0.0f);
+    tp.phat = el.f * cos_i * lum(tp.le);
+  }
   return tp;
 }
 
-template <int NL, int NT, bool BN>
-__global__ void __launch_bounds__(THREADS)
-    shade_kernel(const __grid_constant__ ShadeIO io,
-                 const __grid_constant__ ShadeParams P) {
-  __shared__ float s_sf[SF_LEN];
-  __shared__ float s_envf[2 * ENV_N];
-  __shared__ int s_envi[ENV_N];
-  __shared__ float s_sob[BN ? MAX_DRAWS : 1];
-  for (int i = threadIdx.x; i < SF_LEN; i += THREADS) s_sf[i] = P.sf[i];
-  for (int i = threadIdx.x; i < 2 * ENV_N; i += THREADS)
-    s_envf[i] = P.envf[i];
-  for (int i = threadIdx.x; i < ENV_N; i += THREADS) s_envi[i] = P.envi[i];
-  if (BN)
-    for (int i = threadIdx.x; i < P.n_draws; i += THREADS)
-      s_sob[i] = to_unit_float(sobol(P.basis, P.frame, P.base_dim + i));
-  __syncthreads();
+struct Tables {
+  const float* sf;       // SF_LEN
+  const float* envf;     // 2 × ENV_N
+  const int* envi;       // ENV_N
+  const float* sob;      // this launch's Sobol terms (BN)
+};
 
-  const int pix = blockIdx.x * THREADS + threadIdx.x;
-  if (pix >= P.HW) return;
+// one pixel: `x` is its slot of the staged tile (plane k at x[k * TILE])
+template <int NL, int NT, bool BN>
+__device__ __forceinline__ void shade_pixel(const ShadeIO& io,
+                                            const ShadeParams& P,
+                                            const Tables& tab, const float* x,
+                                            int pix) {
   const int n_local = NL >= 0 ? NL : P.n_local;
   const int n_taps = NT >= 0 ? NT : P.n_taps;
+  const float* s_sf = tab.sf;
 
-  auto in = [&](int k) { return __ldg(io.in[k] + pix); };
-  Ctx c{P, s_sob};
+  auto in = [&](int k) { return x[k * TILE]; };
+  Ctx c{P, tab.sob};
   c.p = {in(0), in(1), in(2)};
   c.n = {in(3), in(4), in(5)};
   c.wo = {in(6), in(7), in(8)};
@@ -226,8 +332,7 @@ __global__ void __launch_bounds__(THREADS)
   const int bn_at = 15 + (n_taps > 0 ? 1 + 9 * n_taps : 0);
   if (BN) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      c.bnw[i] = __float_as_uint(__ldg(io.in[bn_at + i] + pix));
+    for (int i = 0; i < 4; ++i) c.bnw[i] = __float_as_uint(in(bn_at + i));
   } else {
     // the wave's own pixel coordinates, rows offset by y0
     const uint32_t px = static_cast<uint32_t>(pix % P.W);
@@ -297,8 +402,9 @@ __global__ void __launch_bounds__(THREADS)
     k += 3;
     const float cos_t = 1.0f - u1 * (1.0f - s_sf[SF_COS_SUN]);
     const float sin_t = sqrtf(clamp_min(1.0f - cos_t * cos_t, 0.0f));
-    const float phi = TWO_PI_F * u2;
-    const V3 local = {sin_t * cosf(phi), sin_t * sinf(phi), cos_t};
+    float sp, cp;
+    sin_cos(TWO_PI_F * u2, sp, cp);
+    const V3 local = {sin_t * cp, sin_t * sp, cos_t};
     const V3 sun = {s_sf[SF_SUN_X], s_sf[SF_SUN_X + 1], s_sf[SF_SUN_X + 2]};
     V3 t_, bt_;
     onb(sun, t_, bt_);
@@ -313,21 +419,24 @@ __global__ void __launch_bounds__(THREADS)
     const float un = u1 * static_cast<float>(ENV_N);
     const int col = rtvb::clampi(static_cast<int>(un), 0, ENV_N - 1);
     const float frac = un - static_cast<float>(col);
-    const int texel = frac < s_envf[col] ? col : s_envi[col];
-    const float pmf = s_envf[ENV_N + rtvb::clampi(texel, 0, ENV_N - 1)];
+    const int texel = frac < tab.envf[col] ? col : tab.envi[col];
+    const float pmf = tab.envf[ENV_N + rtvb::clampi(texel, 0, ENV_N - 1)];
     const float iu = static_cast<float>(rtvb::pymod(texel, 8));
     const float iv = static_cast<float>(texel >= 0 ? texel / 8
                                                    : -((-texel + 7) / 8));
     const float phi = TWO_PI_F * (iu + u2) * 0.125f;
     const float cos_t = 1.0f - (iv + u3) * 0.25f;
     const float sin_t = sqrtf(clamp_min(1.0f - cos_t * cos_t, 0.0f));
-    const V3 wi_sky = {sin_t * cosf(phi), cos_t, sin_t * sinf(phi)};
+    float sp, cp;
+    sin_cos(phi, sp, cp);
+    const V3 wi_sky = {sin_t * cp, cos_t, sin_t * sp};
     c.stream(r, wi_sky, rtvb::BIG, sky_radiance(wi_sky, s_sf),
              pmf * INV_ENV_OMEGA, u_take, KIND_SKY, 0, 0.0f, 0.0f, 1.0f,
              false);
   }
 
-  // temporal reservoir combine (restir.temporal_combine role)
+  // temporal reservoir combine (restir.temporal_combine role); the taps'
+  // planes are staged, so pass 2 re-reads shared memory only
   float M_new;
   if (n_taps > 0) {
     const int k_taps = k;
@@ -340,7 +449,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll (NT > 0 ? NT : 1)
     for (int t = 0; t < (NT >= 0 ? NT : MAX_TAPS); ++t) {
       if (NT < 0 && t >= n_taps) break;
-      m_sum = m_sum + decode_tap(c, io, t, pix, depth, false).M;
+      m_sum = m_sum + decode_tap(c, x + (16 + 9 * t) * TILE, depth, false).M;
     }
     const float c_total = 1.0f + m_sum;
     const float inv_ct = 1.0f / c_total;
@@ -348,7 +457,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll 1
     for (int t = 0; t < (NT >= 0 ? NT : MAX_TAPS); ++t) {
       if (NT < 0 && t >= n_taps) break;
-      const Tap tp = decode_tap(c, io, t, pix, depth, true);
+      const Tap tp = decode_tap(c, x + (16 + 9 * t) * TILE, depth, true);
       const float w_t = (tp.M * inv_ct) * tp.phat * tp.W;
       wsum = wsum + w_t;
       if (tp.valid &&
@@ -397,20 +506,87 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 template <int NL, int NT, bool BN>
-void launch(const ShadeIO& io, const ShadeParams& P, cudaStream_t s) {
-  shade_kernel<NL, NT, BN>
-      <<<rtvb::blocks_for(P.HW, THREADS), THREADS, 0, s>>>(io, P);
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+    shade_kernel(const __grid_constant__ ShadeIO io,
+                 const __grid_constant__ ShadeParams P) {
+  extern __shared__ __align__(128) float s_planes[];   // n_in × TILE
+  __shared__ float s_sf[SF_LEN];
+  __shared__ float s_envf[2 * ENV_N];
+  __shared__ int s_envi[ENV_N];
+  __shared__ float s_sob[BN ? MAX_DRAWS : 1];
+  __shared__ __align__(8) uint64_t s_full;   // the tile's planes are in
+  __shared__ unsigned s_done;                 // warps done with a tile
+  const int n_in = NT >= 0 ? planes_in(NT, BN) : P.n_in;
+  if (threadIdx.x == 0) {
+    mbar_init(&s_full, 1);
+    s_done = 0u;
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  for (int i = threadIdx.x; i < SF_LEN; i += THREADS) s_sf[i] = P.sf[i];
+  for (int i = threadIdx.x; i < 2 * ENV_N; i += THREADS)
+    s_envf[i] = P.envf[i];
+  for (int i = threadIdx.x; i < ENV_N; i += THREADS) s_envi[i] = P.envi[i];
+  if (BN)
+    for (int i = threadIdx.x; i < P.n_draws; i += THREADS)
+      s_sob[i] = to_unit_float(sobol(P.basis, P.frame, P.base_dim + i));
+  __syncthreads();
+  if (threadIdx.x == 0) issue_tile(io, P, n_in, blockIdx.x, s_planes, &s_full);
+  const Tables tab{s_sf, s_envf, s_envi, s_sob};
+  const unsigned long long all_bulk =
+      n_in >= 64 ? ~0ull : (1ull << n_in) - 1ull;
+
+  // tile j of this block is blockIdx.x + j·grid, phase j of the barrier
+  for (int j = 0;; ++j) {
+    const int tile = blockIdx.x + j * gridDim.x;
+    if (tile >= P.n_tiles) break;
+    mbar_wait(&s_full, static_cast<uint32_t>(j) & 1u);
+    const int pix = tile * TILE + threadIdx.x;
+    if (pix < P.HW) {
+      // the planes no bulk copy brought: this thread's own slots
+      const bool whole = (tile + 1) * TILE <= P.HW;
+      if (!whole || io.bulk != all_bulk)
+        for (int q = 0; q < n_in; ++q)
+          if (!whole || !((io.bulk >> q) & 1ull))
+            s_planes[q * TILE + threadIdx.x] = __ldg(io.in[q] + pix);
+      shade_pixel<NL, NT, BN>(io, P, tab, s_planes + threadIdx.x, pix);
+    }
+    // the last warp done with the tile brings in the block's next one
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) {
+      __threadfence_block();
+      if ((atomicAdd(&s_done, 1u) + 1u) % WARPS == 0u) {
+        __threadfence_block();
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        const int next = tile + gridDim.x;
+        if (next < P.n_tiles) issue_tile(io, P, n_in, next, s_planes, &s_full);
+      }
+    }
+  }
+}
+
+template <int NL, int NT, bool BN>
+cudaError_t launch(const ShadeIO& io, const ShadeParams& P, cudaStream_t s) {
+  const size_t smem = sizeof(float) * P.n_in * TILE;
+  // the blocks the card holds at once, no more than the tiles need
+  static rtvb::GridCache cache;
+  int grid = 0;
+  const cudaError_t e = rtvb::persistent_grid(
+      cache, shade_kernel<NL, NT, BN>, THREADS, smem, P.n_tiles, &grid);
+  if (e != cudaSuccess) return e;
+  shade_kernel<NL, NT, BN><<<grid, THREADS, smem, s>>>(io, P);
+  return cudaGetLastError();
 }
 
 template <bool BN>
-void dispatch(const ShadeIO& io, const ShadeParams& P, cudaStream_t s) {
+cudaError_t dispatch(const ShadeIO& io, const ShadeParams& P,
+                     cudaStream_t s) {
   // the shipped frame: no local lights (0, 3) / (0, 0); with lights the
   // primary vertex's 8 candidates + 3 taps and the secondary 2 + none
   if (P.n_local == 0 && P.n_taps == 3) return launch<0, 3, BN>(io, P, s);
   if (P.n_local == 0 && P.n_taps == 0) return launch<0, 0, BN>(io, P, s);
   if (P.n_local == 8 && P.n_taps == 3) return launch<8, 3, BN>(io, P, s);
   if (P.n_local == 2 && P.n_taps == 0) return launch<2, 0, BN>(io, P, s);
-  launch<-1, -1, BN>(io, P, s);
+  return launch<-1, -1, BN>(io, P, s);
 }
 
 }  // namespace
@@ -427,13 +603,17 @@ RTVB_EXPORT int rtvb_shade(const void* const* in, int n_in,
                            float m_cap, float dis_thr, void* stream) {
   if (n_taps < 0 || n_taps > MAX_TAPS || n_local < 0 ||
       n_local > MAX_LOCAL || K < 1 ||
-      n_in != 15 + (n_taps > 0 ? 1 + 9 * n_taps : 0) + (blue_noise ? 4 : 0))
+      n_in != planes_in(n_taps, blue_noise != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long HW = static_cast<long long>(H) * W;
   if (HW == 0) return 0;
   ShadeIO io;
-  for (int i = 0; i < N_IN_MAX; ++i)
+  io.bulk = 0ull;
+  for (int i = 0; i < N_IN_MAX; ++i) {
     io.in[i] = i < n_in ? static_cast<const float*>(in[i]) : nullptr;
+    if (i < n_in && reinterpret_cast<uintptr_t>(in[i]) % 16 == 0)
+      io.bulk |= 1ull << i;
+  }
   for (int i = 0; i < N_OUT_F; ++i) io.out_f[i] = static_cast<float*>(out_f[i]);
   for (int i = 0; i < N_OUT_I; ++i) io.out_i[i] = static_cast<int*>(out_i[i]);
   ShadeParams P;
@@ -451,14 +631,33 @@ RTVB_EXPORT int rtvb_shade(const void* const* in, int n_in,
   P.n_taps = n_taps;
   P.base_dim = base_dim;
   P.n_draws = 5 * n_local + 10 + n_taps;
+  P.n_in = n_in;
+  P.n_tiles = static_cast<int>((HW + TILE - 1) / TILE);
   P.frame = frame;
   P.ent_unreachable = ent_unreachable != 0;
   P.m_cap = m_cap;
   P.dis_thr = dis_thr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (blue_noise)
-    dispatch<true>(io, P, s);
-  else
-    dispatch<false>(io, P, s);
+  const cudaError_t e =
+      blue_noise ? dispatch<true>(io, P, s) : dispatch<false>(io, P, s);
+  return static_cast<int>(e);
+}
+
+namespace {
+__global__ void sin_cos_kernel(const float* __restrict__ x,
+                               float* __restrict__ s, float* __restrict__ c,
+                               long long n) {
+  const long long i = blockIdx.x * 256ll + threadIdx.x;
+  if (i < n) sin_cos(x[i], s[i], c[i]);
+}
+}  // namespace
+
+// sin_cos (shade_math.cuh), the form K4 takes the sine and cosine of one
+// angle in, over n floats: the tests hold it against torch.sin / torch.cos
+RTVB_EXPORT int rtvb_sin_cos(const float* x, float* s, float* c,
+                             long long n, void* stream) {
+  if (n == 0) return 0;
+  sin_cos_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
+                   static_cast<cudaStream_t>(stream)>>>(x, s, c, n);
   return rtvb::launch_status();
 }

@@ -79,6 +79,12 @@ __device__ __forceinline__ float sign_nz(float x) {
   const float y = x == 0.0f ? 1.0f : x;
   return static_cast<float>((0.0f < y) - (y < 0.0f));
 }
+// sinf and cosf of one angle with one argument reduction (sincosf): the
+// same bits as the two calls, and as torch.sin / torch.cos on the card,
+// for every angle in [0, 2π] (tests/test_torch_gpu.py checks each one)
+__device__ __forceinline__ void sin_cos(float x, float& s, float& c) {
+  sincosf(x, &s, &c);
+}
 // pack.octa_decode
 __device__ __forceinline__ V3 octa_decode(float u, float v) {
   const float z = 1.0f - fabsf(u) - fabsf(v);
@@ -286,16 +292,17 @@ __device__ __noinline__ Sample sample(const Mat m, V3 n, V3 wo, float u1,
 
   // cosine-weighted hemisphere (mathutil.cosine_sample_hemisphere)
   const float r = sqrtf(u2);
-  const float phi_d = TWO_PI_F * u3;
-  const V3 wi_d_local = {r * cosf(phi_d), r * sinf(phi_d),
-                         sqrtf(clamp_min(1.0f - u2, 0.0f))};
+  float sd, cd;
+  sin_cos(TWO_PI_F * u3, sd, cd);
+  const V3 wi_d_local = {r * cd, r * sd, sqrtf(clamp_min(1.0f - u2, 0.0f))};
   const V3 wi_d = from_local(wi_d_local, t, bt, n);
 
-  const float phi = TWO_PI_F * u2;
+  float sh, ch;
+  sin_cos(TWO_PI_F * u2, sh, ch);
   const float cos_h = sqrtf(
       clamp2((1.0f - u3) / (1.0f + (alpha2 - 1.0f) * u3), 0.0f, 1.0f));
   const float sin_h = sqrtf(clamp_min(1.0f - cos_h * cos_h, 0.0f));
-  const V3 h_local = {sin_h * cosf(phi), sin_h * sinf(phi), cos_h};
+  const V3 h_local = {sin_h * ch, sin_h * sh, cos_h};
   const V3 h = from_local(h_local, t, bt, n);
   const bool mirror = m.rough < ROUGHNESS_THRESHOLD;
   const V3 wi_s = mirror ? reflect(neg(wo), n) : reflect(neg(wo), h);

@@ -298,53 +298,17 @@ size_t staged_bytes(int X, int Z) {
   return sizeof(int) * (static_cast<size_t>(X) * Z + 2 * SLOTS);
 }
 
-// blocks of one instance that an SM holds at once with `smem` staged, and
-// the SM count, for the current device (cached)
-template <bool ANY_HIT>
-cudaError_t occupancy(size_t smem, int* per_sm, int* sms) {
-  struct Cached {
-    int device = -1;
-    size_t smem = 0;
-    int per_sm = 0, sms = 0;
-  };
-  static Cached cache;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (cache.device != dev || cache.smem != smem) {
-    auto kern = trace_kernel<ANY_HIT>;
-    if (smem > 48 * 1024) {
-      e = cudaFuncSetAttribute(kern,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-      if (e != cudaSuccess) return e;
-    }
-    Cached c;
-    c.device = dev;
-    c.smem = smem;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&c.per_sm, kern,
-                                                      THREADS, smem);
-    if (e != cudaSuccess) return e;
-    e = cudaDeviceGetAttribute(&c.sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return e;
-    if (c.per_sm == 0) return cudaErrorInvalidConfiguration;
-    cache = c;
-  }
-  *per_sm = cache.per_sm;
-  *sms = cache.sms;
-  return cudaSuccess;
-}
-
 template <bool ANY_HIT>
 int launch(const Rays& q, const Tables& tab, const World& w,
            const Record& out, cudaStream_t stream) {
   const size_t smem = staged_bytes(w.X, w.Z);
-  int per_sm = 0, sms = 0;
-  cudaError_t e = occupancy<ANY_HIT>(smem, &per_sm, &sms);
-  if (e != cudaSuccess) return static_cast<int>(e);
   // the blocks the card holds at once, no more than the chunks need
-  const int want = rtvb::blocks_for(q.n, THREADS);
-  const int grid = per_sm * sms < want ? per_sm * sms : want;
+  static rtvb::GridCache cache;
+  int grid = 0;
+  const cudaError_t e =
+      rtvb::persistent_grid(cache, trace_kernel<ANY_HIT>, THREADS, smem,
+                            rtvb::blocks_for(q.n, THREADS), &grid);
+  if (e != cudaSuccess) return static_cast<int>(e);
   trace_kernel<ANY_HIT><<<grid, THREADS, smem, stream>>>(q, tab, w, out);
   return rtvb::launch_status();
 }

@@ -68,31 +68,32 @@ def intersect_packed_plain(o, d, tri_packed, t_cap=None) -> TriHit:
                   tri=torch.where(found, best_i, -1), u=best_u, v=best_v)
 
 
-TRI = K.register(K.CudaKernel("tri", "rtvb_tri",
+TRI = K.register(K.CudaKernel("tri", "rtvb_tri_box",
                               [K.P] * 8 + [K.I, K.I] + [K.P] * 5))
 
 
 def intersect_packed_cuda(o, d, tri_packed, t_cap=None) -> TriHit:
-    """Launch K2 (csrc/tri_kernel.cu) on CUDA tensors."""
+    """Launch K2 (csrc/tri_kernel.cu) on CUDA tensors.  The kernel writes
+    the hit into the returned torch.bool tensor and reads no cap plane
+    when t_cap is None."""
     shape = o[0].shape
     dev = o[0].device
     rays = [K.as_input(f"ray{i}", a, torch.float32, shape, dev)
             for i, a in enumerate((*o, *d))]
-    if t_cap is None:
-        t_cap = torch.full(shape, BIG, dtype=torch.float32, device=dev)
-    t_cap = K.as_input("t_cap", t_cap, torch.float32, shape, dev)
+    if t_cap is not None:
+        t_cap = K.as_input("t_cap", t_cap, torch.float32, shape, dev)
     n_tri = tri_packed.shape[0]
     if n_tri > MAX_TRIS:
         raise ValueError(f"triangle soup {n_tri} > {MAX_TRIS}")
     tri = K.as_input("tri_packed", tri_packed, torch.float32, (n_tri, 9), dev)
-    hit = torch.empty(shape, dtype=torch.int32, device=dev)
+    hit = torch.empty(shape, dtype=torch.bool, device=dev)
     t = torch.empty(shape, dtype=torch.float32, device=dev)
     idx = torch.empty(shape, dtype=torch.int32, device=dev)
     u = torch.empty(shape, dtype=torch.float32, device=dev)
     v = torch.empty(shape, dtype=torch.float32, device=dev)
     TRI.launch(dev, *rays, t_cap, tri, rays[0].numel(), n_tri,
                hit, t, idx, u, v)
-    return TriHit(hit=hit != 0, t=t, tri=idx, u=u, v=v)
+    return TriHit(hit=hit, t=t, tri=idx, u=u, v=v)
 
 
 def intersect_packed(o, d, tri_packed, t_cap=None) -> TriHit:

@@ -391,6 +391,21 @@ SHADE = K.register(K.CudaKernel(
     + [K.I] * 3 + [ctypes.c_uint32] + [K.I] * 6 + [K.F, K.F]))
 
 
+# the form K4 takes the sine and cosine of one angle in (one sincosf);
+# not a kernel of the frame, so not registered with the launch counts
+SIN_COS = K.CudaKernel("sin_cos", "rtvb_sin_cos",
+                       [K.P, K.P, K.P, ctypes.c_longlong])
+
+
+def sin_cos_cuda(x: torch.Tensor):
+    """(sin x, cos x) of a CUDA float32 tensor as K4 computes them, to hold
+    them against torch.sin and torch.cos, which the plain version calls."""
+    x = K.as_input("x", x, torch.float32, None, x.device)
+    s, c = torch.empty_like(x), torch.empty_like(x)
+    SIN_COS.launch(x.device, x, s, c, x.numel())
+    return s, c
+
+
 def _ptr_array(tensors):
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 

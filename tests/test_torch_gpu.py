@@ -2,19 +2,26 @@
 card (marker `gpu`; skipped where torch sees no CUDA device).  Run on a
 GPU machine with:  python -m pytest tests/test_torch_gpu.py -m gpu
 
-Small shapes with ragged edges; K1, K2, K3 and K5 bit-exact (the library
-is built with --fmad=false, so every product rounds like the plain
+Small shapes with ragged edges; K1, K2, K3, K4 and K5 bit-exact (the
+library is built with --fmad=false, so every product rounds like the plain
 version's), K6 to 1e-5 relative; K1 also at the frame's ray-wave shapes,
 on ray counts that fill no whole 32-ray chunk and on an empty ray set;
 K6 also at every step 1-16, 24 and 32 on a 1080p G-buffer, on an image
 smaller than one tile and on an odd size (its shared-memory windows, with
 clamped borders), at phi_normal 32 and 128 (its generic instance), and
-refusing a step whose window passes a block's shared memory; K4 on the
-six cases of chip_smoke.py (the frame's own bounce inputs, synthetic
-lights, blue noise off, the generic instance, bounce 1 as the frame calls
-it) to its bar: the int outputs equal on ≥ 99.9% of pixels, the floats
-within 1e-5 relative there; K7 (EASU) bit-exact at the rungs' ratios 4:3, 3:2, 2:1 and
-a mixed per-axis one, on images with flat patches (no direction)."""
+refusing a step whose window passes a block's shared memory; K2 on rays
+that probe its box cull (tests/torch_tri_probes.py: the box's faces,
+edges and corners, origins inside it, zero direction components, parked
+rays, caps one float either side of a hit) against the flower soup, a
+padded random soup, a 2048-triangle soup (past 48 KB of shared memory)
+and a soup of padding, and at the frame's wave shapes; K4 on the six
+cases of chip_smoke.py (the frame's own bounce inputs, synthetic lights,
+blue noise off, the generic instance, bounce 1 as the frame calls it),
+every instance with blue and white noise (a nonzero y0), pixel counts
+that leave a ragged last tile, and planes a bulk copy cannot take (not
+16-byte aligned); K4's sin_cos against torch.sin / torch.cos on every
+angle in [0, 2π]; K7 (EASU) bit-exact at the rungs' ratios 4:3, 3:2, 2:1
+and a mixed per-axis one, on images with flat patches (no direction)."""
 import numpy as np
 import pytest
 import torch
@@ -114,6 +121,80 @@ def test_tri_kernel_matches_plain(engine):
     b = triangles.intersect_packed_plain(o, d, tri)
     for f in triangles.TriHit._fields:
         assert _bits_equal(getattr(a, f), getattr(b, f)), f
+
+
+def _tri_both(o, d, tri, cap):
+    from rtvb_tpu_torch.ops import triangles
+    a = triangles.intersect_packed_cuda(o, d, tri, cap)
+    b = triangles.intersect_packed_plain(o, d, tri, cap)
+    assert a.hit.dtype == torch.bool
+    for f in triangles.TriHit._fields:
+        assert _bits_equal(getattr(a, f), getattr(b, f)), f
+    return b
+
+
+def _soup(name, engine):
+    from torch_tri_probes import random_soup
+    if name == "flowers":
+        return engine.entity_buffers().tri_packed
+    if name == "random+padding":
+        soup = np.concatenate([random_soup(40, 5),
+                               np.zeros((24, 9), np.float32)])
+    elif name == "2048":                 # 73 KB: past the default 48 KB
+        soup = random_soup(2048, 6, size=0.7)
+    else:                                # all padding: every ray misses
+        soup = np.zeros((16, 9), np.float32)
+    return torch.from_numpy(soup).to(engine.device)
+
+
+# the box cull where rounding could make it wrong (tests/torch_tri_probes)
+@pytest.mark.parametrize("capped", [False, True])
+@pytest.mark.parametrize("soup", ["flowers", "random+padding", "2048",
+                                  "padding"])
+def test_tri_kernel_box_probes(engine, soup, capped):
+    from torch_tri_probes import probe_rays
+    tri = _soup(soup, engine)
+    o, d, cap = probe_rays(tri.cpu().numpy(), seed=9)
+    dev = engine.device
+    o = tuple(torch.from_numpy(a).to(dev) for a in o)
+    d = tuple(torch.from_numpy(a).to(dev) for a in d)
+    b = _tri_both(o, d, tri, torch.from_numpy(cap).to(dev) if capped
+                  else None)
+    n_hit = int(b.hit.sum())
+    assert n_hit == 0 if soup == "padding" else n_hit > 20
+
+
+# the frame's wave shapes: random rays (every 7th parked, every 5th with
+# a zero x or z), capped, against the flower soup and the 2048 soup
+@pytest.mark.parametrize("shape", [(1080, 1920), (540, 960), (1080, 960),
+                                   (7, 13), (0,)])
+@pytest.mark.parametrize("soup", ["flowers", "2048"])
+def test_tri_kernel_frame_shapes(engine, soup, shape):
+    o, d = _rays(engine, 12, shape)
+    g = torch.Generator().manual_seed(13)
+    cap = (torch.rand(shape, generator=g) * 60 + 0.5).to(engine.device)
+    tri = _soup(soup, engine)
+    _tri_both(o, d, tri, cap)
+    _tri_both(o, d, tri, None)
+
+
+def test_tri_wrapper_counts_and_raises(engine):
+    from rtvb_tpu_torch.ops import triangles
+    o, d = _rays(engine, 14, (20, 30))
+    tri = engine.entity_buffers().tri_packed
+    before = triangles.TRI.launches
+    triangles.intersect_packed(o, d, tri)
+    assert triangles.TRI.launches == before + 1
+    with pytest.raises(TypeError):
+        triangles.intersect_packed(o, d, tri, torch.zeros(20, 30,
+                                                          dtype=torch.float64,
+                                                          device=engine.device))
+    with pytest.raises(ValueError):
+        triangles.intersect_packed_cuda(o, d, tri.cpu())
+    with pytest.raises(ValueError):
+        triangles.intersect_packed(o, d, torch.zeros(
+            triangles.MAX_TRIS + 1, 9, device=engine.device))
+    assert triangles.TRI.launches == before + 1
 
 
 def test_texture_kernel_matches_plain(engine):
@@ -272,18 +353,114 @@ def shade_cases(cuda):
     return chip_smoke, chip_smoke.shade_cases(eng)
 
 
-@pytest.mark.parametrize("case", ["a", "b", "c", "d", "e", "f"])
-def test_shade_kernel_matches_plain(shade_cases, case):
+def _shade_against_plain(smoke, args, kw, name=""):
+    """K4 against its plain version: chip_smoke's bar, and every output
+    equal to the bit."""
     from rtvb_tpu_torch.render import ris_kernel as RK
-    smoke, cases = shade_cases
-    name = next(n for n in cases if n.startswith(f"({case})"))
-    args, kw = cases[name]
     a = RK.fused_shade_cuda(*args, **kw)
     b = RK.fused_shade_plain(*args, **kw)
     torch.cuda.synchronize()
     d = smoke.shade_diff(a, b)
     print(name, d)
     smoke.shade_check(d)
+    assert d["int_agree"] == 1.0 and not d["float_bits_differ"], d
+
+
+def _shade_case(cases, case):
+    name = next(n for n in cases if n.startswith(f"({case})"))
+    return name, cases[name]
+
+
+@pytest.mark.parametrize("case", ["a", "b", "c", "d", "e", "f"])
+def test_shade_kernel_matches_plain(shade_cases, case):
+    smoke, cases = shade_cases
+    name, (args, kw) = _shade_case(cases, case)
+    _shade_against_plain(smoke, args, kw, name)
+
+
+def _map_planes(args, kw, fn):
+    """args, kw with fn applied to every pixel plane (the surface, depth,
+    tap and blue-noise planes; not the tables)."""
+    def m(x):
+        if isinstance(x, torch.Tensor):
+            return fn(x)
+        if isinstance(x, (tuple, list)):
+            return type(x)(m(y) for y in x)
+        return x
+    return (tuple(args[:8]) + tuple(m(a) for a in args[8:]),
+            {k: m(v) for k, v in kw.items()})
+
+
+def _white_noise(args, kw, y0):
+    """The case with blue noise off, its rows offset by y0."""
+    return ((args[0]._replace(blue_noise=False), args[1], y0)
+            + tuple(args[3:]), dict(kw, bn=None))
+
+
+# every compile-time instance and the generic one, with blue noise and
+# white (rows offset by a nonzero y0, which only white noise reads)
+@pytest.mark.parametrize("noise", ["blue", "white y0=61"])
+@pytest.mark.parametrize("case", ["a", "b", "c", "e", "f"])
+def test_shade_kernel_instances(shade_cases, case, noise):
+    smoke, cases = shade_cases
+    name, (args, kw) = _shade_case(cases, case)
+    if noise != "blue":
+        args, kw = _white_noise(args, kw, 61)
+    _shade_against_plain(smoke, args, kw, f"{name} {noise}")
+
+
+# pixel counts that leave a ragged last 128-pixel tile (or no whole tile)
+@pytest.mark.parametrize("hw", [(1, 1), (5, 7), (3, 43), (11, 128),
+                                (61, 97)])
+@pytest.mark.parametrize("case", ["a", "d", "e", "f"])
+def test_shade_kernel_ragged_tiles(shade_cases, case, hw):
+    smoke, cases = shade_cases
+    name, (args, kw) = _shade_case(cases, case)
+    h, w = hw
+    args, kw = _map_planes(args, kw, lambda t: t[..., :h, :w].contiguous())
+    _shade_against_plain(smoke, args, kw, f"{name} {h}x{w}")
+
+
+def _misaligned(t):
+    """A contiguous copy of t whose data starts 4 bytes past a 16-byte
+    boundary (bulk copies need 16)."""
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    out = buf[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == 4 and out.is_contiguous()
+    return out
+
+
+# planes a bulk copy cannot take: every plane, or only the taps' planes
+@pytest.mark.parametrize("which", ["all", "taps"])
+@pytest.mark.parametrize("case", ["a", "e"])
+def test_shade_kernel_misaligned_planes(shade_cases, case, which):
+    smoke, cases = shade_cases
+    name, (args, kw) = _shade_case(cases, case)
+    if which == "all":
+        args, kw = _map_planes(args, kw, _misaligned)
+    else:
+        _, kw2 = _map_planes((), {"taps": kw["taps"]}, _misaligned)
+        kw = dict(kw, taps=kw2["taps"])
+    _shade_against_plain(smoke, args, kw, f"{name} misaligned {which}")
+
+
+def test_sin_cos_matches_torch_on_every_angle(cuda):
+    """K4's sin_cos (one sincosf) gives torch.sin's and torch.cos's bits
+    (what the plain version calls) for every float in [0, float32(2π)]:
+    the angles 2π·u that K4 takes them of."""
+    from rtvb_tpu_torch.render import ris_kernel as RK
+    top = int(np.array(2 * np.pi, np.float32).view(np.int32))
+    step = 1 << 26
+    for lo in range(0, top + 1, step):
+        bits = torch.arange(lo, min(lo + step, top + 1), dtype=torch.int32,
+                            device=cuda)
+        x = bits.view(torch.float32)
+        s, c = RK.sin_cos_cuda(x)
+        assert torch.equal(s.view(torch.int32),
+                           torch.sin(x).view(torch.int32)), lo
+        assert torch.equal(c.view(torch.int32),
+                           torch.cos(x).view(torch.int32)), lo
 
 
 def test_shade_wrapper_counts_and_raises(shade_cases):

@@ -72,3 +72,60 @@ def test_intersect_matches_jax(with_cap):
                                    atol=1e-6, err_msg=f)
     # padding rows never win
     assert ph.tri.numpy().max() < 4 * 4 + 12
+
+
+def _torch_rays(o, d):
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    return tuple(T(a) for a in o), tuple(T(a) for a in d)
+
+
+def test_wrapper_contract_on_cpu():
+    """On CPU tensors the wrapper runs the plain version: a torch.bool hit,
+    no cap the same records as a cap plane of BIG, an explicit cap the
+    plain version's records; the CUDA path refuses CPU tensors and counts
+    no launch."""
+    tri = torch.from_numpy(_soup(0))
+    o, d = _torch_rays(*_rays(1, (24, 40)))
+    none = ptri.intersect_packed(o, d, tri)
+    assert none.hit.dtype == torch.bool
+    full = ptri.intersect_packed(o, d, tri, torch.full((24, 40), ptri.BIG))
+    cap = torch.from_numpy(np.random.default_rng(3).uniform(
+        5, 40, (24, 40)).astype(np.float32))
+    capped = ptri.intersect_packed(o, d, tri, cap)
+    plain = ptri.intersect_packed_plain(o, d, tri, cap)
+    for f in ptri.TriHit._fields:
+        assert torch.equal(getattr(none, f), getattr(full, f)), f
+        assert torch.equal(getattr(capped, f), getattr(plain, f)), f
+    assert 0 < int(capped.hit.sum()) < int(none.hit.sum())
+    before = ptri.TRI.launches
+    with pytest.raises(ValueError):
+        ptri.intersect_packed_cuda(o, d, tri, cap)
+    assert ptri.TRI.launches == before
+
+
+@pytest.mark.parametrize("with_cap", [False, True])
+def test_probe_rays_match_jax(with_cap):
+    """The plain version against the XLA intersector on the rays that probe
+    K2's box cull: the padded box's face planes, the box's corners, edges
+    and faces and points just off them, the triangles' vertices and edges,
+    origins inside the box, zero direction components, parked rays, caps at
+    a hit's t and one float either side."""
+    from torch_tri_probes import probe_rays
+    tri = _soup(0)
+    o, d, cap = probe_rays(tri, seed=4, n=96)
+    cap = cap if with_cap else None
+    with jax.disable_jit():
+        jh = jtri.intersect_packed_xla(
+            tuple(jnp.asarray(a) for a in o), tuple(jnp.asarray(a) for a in d),
+            jnp.asarray(tri), None if cap is None else jnp.asarray(cap))
+    to, td = _torch_rays(o, d)
+    ph = ptri.intersect_packed(to, td, torch.from_numpy(tri),
+                               None if cap is None else torch.from_numpy(cap))
+    hit = np.asarray(jh.hit)
+    assert 100 < hit.sum() < hit.size // 2
+    np.testing.assert_array_equal(ph.hit.numpy(), hit)
+    np.testing.assert_array_equal(ph.tri.numpy(), np.asarray(jh.tri))
+    for f in ("t", "u", "v"):
+        np.testing.assert_allclose(getattr(ph, f).numpy(),
+                                   np.asarray(getattr(jh, f)), rtol=1e-6,
+                                   atol=1e-6, err_msg=f)
