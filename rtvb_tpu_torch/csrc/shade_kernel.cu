@@ -39,9 +39,10 @@
 //   and ran bounce 0 2% slower;
 // - bit-exact savings in the body: an invalid tap skips its BSDF proxy
 //   (its target pdf is 0), a tap that is not a local light skips the
-//   light table, and sin and cos of one angle come from one sincosf (one
+//   light table, sin and cos of one angle come from one sincosf (one
 //   argument reduction): the same bits as the two calls the plain version
-//   makes (the gpu tests check every angle in [0, 2π]).
+//   makes (the gpu tests check every angle in [0, 2π]), and a blue-noise
+//   draw picks its word by selects, so the words stay out of local memory.
 // The per-frame tables (the 72-float sky / sun vector, the env alias rows,
 // the blue-noise Sobol terms of this launch's dimensions) are staged in
 // shared memory once a block; the light table (18 + 3 rows × K slots) is

@@ -124,7 +124,10 @@ __device__ __forceinline__ float pcg_draw(uint32_t base, uint32_t frame,
 __device__ __forceinline__ float bn_draw(const uint32_t bnw[4], float sob,
                                          int dim) {
   const int d16 = dim & 15;
-  const uint32_t byte = (bnw[d16 >> 2] >> (8 * (d16 & 3))) & 0xFFu;
+  // the word by selects, not an index: bnw stays in registers
+  const uint32_t w = d16 < 8 ? (d16 < 4 ? bnw[0] : bnw[1])
+                             : (d16 < 12 ? bnw[2] : bnw[3]);
+  const uint32_t byte = (w >> (8 * (d16 & 3))) & 0xFFu;
   const float mask_f =
       __uint_as_float((byte << 15) | 0x3F800000u) - 0.998046875f;
   const float u = mask_f + sob;
