@@ -35,8 +35,9 @@
 //   in flight while tile i is shaded) take 48 KB a bounce-0 block, so 4
 //   blocks an SM, and ran 8% slower than the first kernel; one tile at
 //   6 blocks runs as fast (kernel_ab.py, NVIDIA H100 80GB HBM3, 700 W).
-//   A few instances keep 4-20 bytes of spill there: (128, 5) spills none
-//   and ran bounce 0 2% slower;
+//   Some instances keep a little spill there (at most 40 bytes stored, in
+//   the 8-candidate blue-noise one): (128, 5) spills none and ran bounce 0
+//   2% slower;
 // - bit-exact savings in the body: an invalid tap skips its BSDF proxy
 //   (its target pdf is 0), a tap that is not a local light skips the
 //   light table, sin and cos of one angle come from one sincosf (one
