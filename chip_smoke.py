@@ -13,11 +13,15 @@
    on bounce 0's shadow rays and on bounces 1-2's batched), random rays at
    the GI shapes and sun shadow rays, its bound counting the sub-steps
    these rays march (the plain version's tally); K6 (à-trous) on the
-   frame's own four passes (steps 1, 2, 4, 8), at steps 16 and 32, and at
-   phi_normal 32 (its generic instance); K2 (triangles) on the frame's
-   own five launches as captured (bounces 0-2 and the two shadow waves),
-   the scene camera's rays and random rays; a frame's time of K1, K2, K4
-   and K6 summed from the launches the frame makes; K5 nearest against
+   frame's own four passes (steps 1, 2, 4, 8), at steps 16, 32, 128 and
+   256 (the last two past a block's shared memory, on a column lattice)
+   and at phi_normal 32 and 80 (its generic instance; 80 by powf); K2
+   (triangles) on the frame's own five launches as captured (bounces 0-2
+   and the two shadow waves), the scene camera's rays, random rays, and
+   rays in the planes of tilted triangles (tests/torch_tri_probes.py,
+   where Möller–Trumbore's determinant is mostly rounding; one of them
+   must hit at t = 2, u = 0, v = 1); a frame's time of K1, K2, K4 and K6
+   summed from the launches the frame makes; K5 nearest against
    grid_sample in 7 rounds of 20 calls, the order reversed every round;
    registers, stack frames and spills from the ptxas report, and K1's,
    K2's, K4's and K6's resident blocks an SM computed from them; K4
@@ -27,12 +31,17 @@
    entity MIS, (c) at 960×540 with 2 candidates and no taps, (d) with blue
    noise off, (e) with 5 candidates and 2 taps (the kernel's generic
    instance), (f) bounce 1 as the frame calls it (the instance that also
-   runs bounce 2);
+   runs bounce 2), (g) and (h) the synthetic table with (24 candidates,
+   6 taps) and (40, 8), past the compile-time instances' counts;
 3. drives the main path — Engine(device="cuda") with the shipped
    Settings() at 1920×1080 (fused shading, native resolution) — through
    warm-up and timed frames, every kernel's launch counter reset just
    before and read just after; K4 must launch 3 times a frame;
 4. checks the frame: u8 shape, finite, non-constant, primary hit fraction;
+   then renders two 1080p frames each at settings the dev panel reaches
+   past the shipped ones (atrous_iterations 9 with phi_normal 80.0, whose
+   K6 steps reach 256; restir_temporal_samples 6, K4's generic instance),
+   each checked and with its own launch counts;
 5. drives the in-line configuration (slice_settings: fused shading off),
    its launch counters reset just before its warm-up frames and read just
    after (K1-K3, K5, K6 launched, K4 not), and times it in turns with the
@@ -103,6 +112,9 @@ RUNG_VS_CPU = (384, 216)      # card-vs-CPU at the 2/3 rung: 256×144 inside
 # larger (NVIDIA H100 SXM data sheet, at its 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# f32 instructions that are not FMAs issue at half that (reported beside
+# K7's bound, not used in it)
+F32_NON_FMA_OPS_PER_S = 33.5e12
 
 
 class SmokeFailure(RuntimeError):
@@ -387,11 +399,136 @@ def tri_work(o, tri, cap):
             27 * n_rays * tri.shape[0])
 
 
+def _probes():
+    """tests/torch_tri_probes.py (numpy and the port only)."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    try:
+        import torch_tri_probes
+    finally:
+        sys.path.pop(0)
+    return torch_tri_probes
+
+
+PLANE_RAY_O = (24.085620880126953, 32.62156677246094, 15.408795356750488)
+
+
+def in_plane_inputs(dev, seed: int = 1, n: int = 2000):
+    """K2's in-plane probe: the soup of tests/torch_tri_probes.py
+    `in_plane_soup` (a lone tilted triangle under each 4-row box) and
+    `in_plane_rays` (2 and 20 units out in each triangle's plane, a few
+    ulps off it), the plane ray first → (soup, o, d) on `dev`."""
+    import torch
+    pr = _probes()
+    soup = pr.in_plane_soup(seed)
+    o, d = pr.in_plane_rays(soup, seed, n)
+    check(tuple(float(c[0]) for c in o) == PLANE_RAY_O, "plane ray first")
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return T(soup), tuple(T(c) for c in o), tuple(T(c) for c in d)
+
+
+def atlas_sectors(atlas, t_count, tid, u, v, lvl) -> dict:
+    """The distinct 32-byte sectors of K3's atlas reads for these inputs,
+    counted from the plain version's level choice and texel indices: of
+    the planar atlas (3 words a tap) and of the interleaved copy (one
+    16-byte texel a tap), and their bytes."""
+    import torch
+    from rtvb_tpu_torch.assets import image_textures as it
+    lvl_i = lvl.to(torch.int32)
+    l0t = torch.clamp(it._tile_reduce_min(lvl_i, it.LEVELS - 1), 0,
+                      it.LEVELS - 2)
+    cand = torch.where((lvl_i == l0t) & (tid >= 0), tid,
+                       it.MAX_TEXTURES).to(torch.int32)
+    t_hi = it._tile_reduce_min(cand, it.MAX_TEXTURES)
+    main_hi = (l0t < it.HI_LEVELS) & (t_hi < t_count) & (tid == t_hi)
+    la = torch.where(main_hi, l0t, torch.clamp(l0t, min=it.HI_LEVELS))
+    use = tid >= 0
+    hi_w, lo_w = atlas.hi[0].numel(), atlas.lo[0].numel()
+    words = []
+    for li in (la, torch.clamp(la + 1, max=it.LEVELS - 1)):
+        s = it.S0 >> li
+        x0, y0, x1, y1, _, _ = it._bilinear_coords(u, v, s)
+        for py, px in ((y0, x0), (y0, x1), (y1, x0), (y1, x1)):
+            is_hi = li < it.HI_LEVELS
+            hi_off = torch.where(li == 0, 0, torch.where(li == 1, 512, 768))
+            hi_idx = torch.clamp(tid * it.HI_ROWS + hi_off + py, 0,
+                                 atlas.hi.shape[1] - 1) * it.S0 + px
+            s_lo = 64 >> (torch.clamp(li, min=it.HI_LEVELS) - it.HI_LEVELS)
+            lo_idx = torch.clamp(tid * it.LO_ROWS + (it.LO_ROWS - 8)
+                                 - 2 * s_lo + py, 0,
+                                 atlas.lo.shape[1] - 1) * it.LO_COLS + px
+            # one index space: the hi texels, then the lo texels
+            words.append(torch.where(is_hi, hi_idx.long(),
+                                     hi_w + lo_idx.long())[use])
+    texel = torch.unique(torch.cat(words))
+    n_texels = int(texel.numel())
+    sec4 = int(torch.unique(texel // 2).numel())      # 16 B texels
+    # planar: 3 planes, 8 words a sector
+    hi_t = texel[texel < hi_w]
+    lo_t = texel[texel >= hi_w] - hi_w
+    sec_planar = 3 * (int(torch.unique(hi_t // 8).numel())
+                      + int(torch.unique(lo_t // 8).numel()))
+    return dict(texels=n_texels, sectors_interleaved=sec4,
+                bytes_interleaved=32 * sec4, sectors_planar=sec_planar,
+                bytes_planar=32 * sec_planar, words_total=hi_w + lo_w)
+
+
+def texture_inputs(eng):
+    """K3's case: the frame's primary hits at the scene camera, their
+    material's texture, triplanar uv and ray-cone level → (atlas, t_count,
+    tid, u, v, lvl)."""
+    import torch
+    from rtvb_tpu_torch.assets import image_textures as it
+    from rtvb_tpu_torch.assets import textures
+    from rtvb_tpu_torch.core.camera import camera_rays
+    from rtvb_tpu_torch.ops import dda
+    from rtvb_tpu_torch.ops import mathutil as m
+    from rtvb_tpu_torch.ops.alias_table import take
+    H, W = eng.height, eng.width
+    o, d = camera_rays(eng.camera, W, H)
+    o = tuple(c.contiguous() for c in o)
+    d = tuple(c.contiguous() for c in d)
+    rec = dda.trace(o, d, eng._tables, eng._tp)
+    p = m.add(o, m.scale(d, torch.where(rec.hit, rec.t, 0.0)))
+    n = (rec.nx, rec.ny, rec.nz)
+    mats = eng.materials
+    img = take(mats.image_id, rec.mi).contiguous()
+    u, v = textures.triplanar_uv(p[0], p[1], p[2], *n)
+    uvs = take(mats.uv_scale, rec.mi)
+    u = (u * uvs).contiguous()
+    v = (v * uvs).contiguous()
+    inc = torch.clamp(torch.abs(m.dot(n, d)), min=0.25)
+    lod = rec.t * eng.camera.pixel_cone_spread(H) * 8.0 / inc
+    atlas = eng.texture_atlas
+    t_count = it.atlas_count(atlas)
+    tid = torch.clamp(img, -1, t_count - 1).contiguous()
+    return atlas, t_count, tid, u, v, it.level_from_lod(lod).contiguous()
+
+
+def easu_inputs(eng) -> dict:
+    """K7's cases: the tone-mapped frame each rung hands to EASU, and a
+    mixed per-axis ratio (the 2/3 rung of 320×180 renders 214×120);
+    {label: (img, out_h, out_w)}.  Leaves `eng` at scale 1."""
+    from rtvb_tpu_torch.core.config import Settings
+    from rtvb_tpu_torch.render.renderer import Engine
+    inputs = {}
+    for label, scale in RUNGS.items():
+        eng.set_render_scale(scale)
+        inputs[f"{label} rung"] = capture_easu_input(eng)
+    eng.set_render_scale(1.0)
+    small = Engine(settings=Settings().replace(rendering={
+        "render_width": VS_CPU[0], "render_height": VS_CPU[1],
+        "render_scale": RUNGS["2/3"]}), device=eng.device)
+    inputs["mixed ratio"] = capture_easu_input(small)
+    return inputs
+
+
 def atrous_inputs(eng, atrous) -> dict:
     """K6's cases: {label: (illum, var, depth, normal, step, phis)}: the
     frame's passes as captured (steps 1, 2, 4, 8), then on the first
     pass's inputs step 16, step 32 (a window past the default 48 KB of
-    shared memory) and step 1 at phi_normal 32 (the generic instance)."""
+    shared memory), steps 128 and 256 (past a block's shared memory: the
+    columns on the step's lattice too) and step 1 at phi_normal 32 and 80
+    (the generic instance, 80 by powf)."""
     steps = [a[4] for a in atrous]
     n_it = eng.settings.denoising.atrous_iterations
     check(steps == [1 << i for i in range(n_it)],
@@ -402,12 +539,13 @@ def atrous_inputs(eng, atrous) -> dict:
         cases[f"frame step {step}, {W}x{H}"] = (illum, var, depth, normal,
                                                 step, phis)
     illum, var, depth, normal, _, phis = atrous[0]
-    for step in (16, 32):
+    for step in (16, 32, 128, 256):
         cases[f"step {step}, {W}x{H}"] = (illum, var, depth, normal, step,
                                           phis)
     phi_lum, _, phi_depth = phis
-    cases[f"step 1, phi_normal 32 (generic), {W}x{H}"] = (
-        illum, var, depth, normal, 1, (phi_lum, 32.0, phi_depth))
+    for phi in (32.0, 80.0):
+        cases[f"step 1, phi_normal {phi:g} (generic), {W}x{H}"] = (
+            illum, var, depth, normal, 1, (phi_lum, phi, phi_depth))
     return cases
 
 
@@ -452,11 +590,9 @@ def kernel_cases(eng, rep: Report, traces, atrous, tris):
     from the engine's frame (its size, half of it for the GI waves)."""
     import torch
     from rtvb_tpu_torch.assets import image_textures as it
-    from rtvb_tpu_torch.assets import textures
     from rtvb_tpu_torch.core.camera import camera_rays
     from rtvb_tpu_torch.ops import dda, triangles, warp_kernel
     from rtvb_tpu_torch.ops import mathutil as m
-    from rtvb_tpu_torch.ops.alias_table import take
     from rtvb_tpu_torch.ops.denoise import atrous_kernel, passes
     from rtvb_tpu_torch.ops.pack import pack2, unpack2
 
@@ -503,31 +639,41 @@ def kernel_cases(eng, rep: Report, traces, atrous, tris):
                      *a),
                  exact(triangles.TriHit._fields), tri_work(to, tt, tc))
 
+    # rays in the planes of tilted triangles, where the determinant is
+    # mostly rounding: the cull must drop none of the plain version's hits
+    soup, po, pd = in_plane_inputs(dev)
+    rep.case("tri", f"in-plane probe rays {po[0].numel()}, "
+             f"{int((soup[:, 3:6] != 0).any(1).sum())} tilted tris",
+             lambda: triangles.intersect_packed_cuda(po, pd, soup),
+             lambda: triangles.intersect_packed_plain(po, pd, soup),
+             exact(triangles.TriHit._fields), tri_work(po, soup, None))
+    ph = triangles.intersect_packed_cuda(po, pd, soup)
+    plane_hit = (bool(ph.hit[0]), float(ph.t[0]), float(ph.u[0]),
+                 float(ph.v[0]))
+    log(f"    the plane ray (o {PLANE_RAY_O}): hit, t, u, v = {plane_hit}")
+    check(plane_hit == (True, 2.0, 0.0, 1.0),
+          f"K2 on the plane ray: {plane_hit}")
+
     # --- K3: the authored atlas at the frame's primary-hit lod field
-    mats = eng.materials
-    img = take(mats.image_id, rec.mi).contiguous()
-    u, v = textures.triplanar_uv(p[0], p[1], p[2], *n)
-    uvs = take(mats.uv_scale, rec.mi)
-    u = (u * uvs).contiguous()
-    v = (v * uvs).contiguous()
-    inc = torch.clamp(torch.abs(m.dot(n, d)), min=0.25)
-    lod = rec.t * eng.camera.pixel_cone_spread(H) * 8.0 / inc
-    atlas = eng.texture_atlas
-    t_count = it.atlas_count(atlas)
-    tid = torch.clamp(img, -1, t_count - 1).contiguous()
-    lvl = it.level_from_lod(lod).contiguous()
+    atlas, t_count, tid, u, v, lvl = texture_inputs(eng)
     use = tid >= 0
     check(float(use.float().mean()) > 0.3, "too few textured pixels")
 
     def tex_cmp(a, b):
         out = (0.0, 0.0)
+        n_diff = 0
         for c in range(6):
             x = torch.where(use, a[c], 0.0)
             y = torch.where(use, b[c], 0.0)
             e = errors(x, y)
             check(e[0] <= 1e-6, f"texture channel {c}: max abs {e[0]}")
             out = (max(out[0], e[0]), max(out[1], e[1]))
+            n_diff += int((x.view(torch.int32) != y.view(torch.int32)).sum())
+        log(f"    texture: {n_diff} values differ in a bit")
         return out
+    check(atlas.hi4 is not None, "the card's atlas has no interleaved copy")
+    log(f"    the atlas's sectors of 32 bytes the frame's inputs touch: "
+        f"{atlas_sectors(atlas, t_count, tid, u, v, lvl)}")
     rep.case("texture", f"{t_count} textures, {W}x{H} lod field",
              lambda: it._sample_cuda(atlas, t_count, tid, u, v, lvl),
              lambda: it._sample_ref(atlas, t_count, tid, u, v, lvl), tex_cmp,
@@ -574,17 +720,20 @@ def kernel_cases(eng, rep: Report, traces, atrous, tris):
                  align_corners=False))
 
     # --- K6: the denoiser's à-trous passes as the frame runs them
-    def atrous_cmp(a, b):
+    def atrous_cmp(a, b, label):
         e1 = errors(a[0], b[0])
         e2 = errors(a[1], b[1])
         check(e1[1] <= 1e-5 or e1[0] <= 1e-6, f"atrous illum {e1}")
         check(e2[1] <= 1e-5 or e2[0] <= 1e-7, f"atrous var {e2}")
+        n_diff = sum(int((x.view(torch.int32) != y.view(torch.int32)).sum())
+                     for x, y in zip(a, b))
+        log(f"    {label}: {n_diff} values differ in a bit")
         return max(e1[0], e2[0]), max(e1[1], e2[1])
     for label, args in atrous_inputs(eng, atrous).items():
         rep.case("atrous", label,
                  lambda a=args: atrous_kernel._atrous_cuda(*a[:5], *a[5]),
                  lambda a=args: passes.atrous_pass_plain(*a[:5], *a[5]),
-                 atrous_cmp,
+                 lambda a, b, label=label: atrous_cmp(a, b, label),
                  # illum, var, depth, normal in; illum, var out
                  (H * W * (32 + 16), ATROUS_PIXEL_OPS * H * W))
     return substeps
@@ -656,7 +805,9 @@ def shade_cases(eng, seed: int = 5):
     (d) bounce 0 with blue noise off; (e) bounce 0 with the synthetic
     table, 5 candidates and 2 taps, which runs the kernel's generic
     instance (runtime counts); (f) bounce 1 as the frame calls it, the
-    instance that bounces 1 and 2 run."""
+    instance that bounces 1 and 2 run; (g) and (h) bounce 0 with the
+    synthetic table, (24 candidates, 6 taps) and (40, 8), the frame's
+    three taps repeated, past the compile-time instances' counts."""
     from rtvb_tpu_torch.render import ris_kernel as RK
     from rtvb_tpu_torch.render import sky as sky_mod
     calls = capture_shade_calls(eng)
@@ -689,6 +840,12 @@ def shade_cases(eng, seed: int = 5):
             with_lights(a0, n_local=5, n_taps=2),
             dict(kw0, taps=kw0["taps"][:2])),
         f"(f) bounce 1 {w1}x{h1}, 0 taps, as the frame calls it": (a1, kw1),
+        f"(g) 200 lights {w0}x{h0}, 24 cand, 6 taps (generic)": (
+            with_lights(a0, n_local=24, n_taps=6, ent_unreachable=True),
+            dict(kw0, taps=(kw0["taps"] * 3)[:6])),
+        f"(h) 200 lights {w0}x{h0}, 40 cand, 8 taps (generic)": (
+            with_lights(a0, n_local=40, n_taps=8, ent_unreachable=True),
+            dict(kw0, taps=(kw0["taps"] * 3)[:8])),
     }
 
 
@@ -1023,10 +1180,18 @@ def easu_kernel_cases(inputs: dict, rep: Report):
         return 0.0, 0.0
     for label, (img, oh, ow) in inputs.items():
         h, w = img.shape[:2]
+        work = easu_work(img, oh, ow)
         rep.case("easu", f"{label}: {w}x{h} -> {ow}x{oh}",
                  lambda i=img, a=oh, b=ow: EK._easu_cuda(i, a, b),
                  lambda i=img, a=oh, b=ow: EK.easu_plain(i, a, b), cmp,
-                 easu_work(img, oh, ow))
+                 work)
+        # for the record, not the bound: the library builds with
+        # --fmad=false, so each product and sum issues on its own, at half
+        # the FMA rate the bound assumes
+        rep.cases[-1]["bound_ms_non_fma"] = work[1] / F32_NON_FMA_OPS_PER_S \
+            * 1e3
+        log(f"    its operations at the non-FMA rate: "
+            f"{rep.cases[-1]['bound_ms_non_fma']:.4f} ms")
 
 
 def check_frame(out, shape, label):
@@ -1066,6 +1231,46 @@ def rung_frames(eng, K, n_warm: int, n_timed: int) -> dict:
         out[label] = dict(scale=scale, internal=(eng.width, eng.height),
                           frame_ms=ms, frame_ms_all=times, enqueue_ms=enq,
                           launches=counts)
+    return out
+
+
+def widened_frames(shipped, K, n_frames: int = 2) -> dict:
+    """Frames at settings past the shipped ones that the dev panel reaches
+    (Settings.adjust): atrous_iterations 9 with phi_normal 80.0 (K6 at
+    steps 1 … 256, its generic instance), restir_temporal_samples 6 (K4's
+    generic instance at bounce 0).  Each engine renders n_frames with its
+    launch counts reset just before and read just after."""
+    from rtvb_tpu_torch.render.renderer import Engine
+    fh, fw = shipped.rendering.render_height, shipped.rendering.render_width
+    out = {}
+    for label, st in (
+            ("atrous_iterations 9, phi_normal 80", shipped.replace(
+                denoising={"atrous_iterations": 9, "phi_normal": 80.0})),
+            ("restir_temporal_samples 6", shipped.replace(
+                rendering={"restir_temporal_samples": 6}))):
+        eng = Engine(settings=st, device="cuda")
+        K.reset_launch_counts()
+        times = []
+        for _ in range(n_frames):
+            t0 = time.perf_counter()
+            frame = eng.render_realtime_device()
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        counts = K.launch_counts()
+        log(f"frame {fw}x{fh} at {label}: ms {[round(t, 3) for t in times]};"
+            f" launches {counts}")
+        check_frame(frame, (fh, fw, 3), label)
+        its = st.denoising.atrous_iterations
+        check(counts["atrous"] == its * n_frames,
+              f"{label}: atrous launched {counts['atrous']} times")
+        check(counts["shade"] == st.rendering.total_bounce_limit * n_frames,
+              f"{label}: shade launched {counts['shade']} times")
+        for name in KERNELS:
+            if name not in RUNG_ONLY:
+                check(counts.get(name, 0) > 0,
+                      f"{label}: kernel {name} never launched")
+        out[label] = dict(frame_ms=times, launches=counts)
+        del eng
     return out
 
 
@@ -1172,8 +1377,9 @@ def resident_blocks(eng, ptxas: list) -> dict:
     settings (the grid K1 and K2 launch is this times the SM count): each
     instance's ptxas registers and static shared memory, plus the dynamic
     shared memory its launch asks for (K1: the column masks and the two
-    128-slot supercolumn tables; K2: the flower soup, 36 B a triangle and
-    24 B a box of 4; K6: nine planes of a 12-row window, 32 + 4·step
+    128-slot supercolumn tables; K2: the flower soup and its rows' bound
+    terms, 64 B a triangle, and 40 B a box of 4; K6: nine planes of a
+    12-row window, 32 + 4·step
     columns wide; K4: a 128-pixel tile of its input planes), under the
     SM's limits.  K4's generic instance at case (e)'s counts."""
     import re
@@ -1183,7 +1389,7 @@ def resident_blocks(eng, ptxas: list) -> dict:
     for r in ptxas:
         if re.search(r"tri_kernel", r["kernel"]):
             out["tri"] = blocks_per_sm(r["registers"], 256, r["smem"]
-                                       + 36 * n_tri + 24 * -(-n_tri // 4))
+                                       + 64 * n_tri + 40 * -(-n_tri // 4))
         m = re.search(r"shade_kernelILi(n?\d+)ELi(n?\d+)ELb([01])E",
                       r["kernel"])
         if m:
@@ -1301,18 +1507,7 @@ def main() -> int:
     shade_diffs = shade_kernel_cases(eng, rep)
     # K7 on the tone-mapped frame each rung hands to EASU, and on a mixed
     # per-axis ratio: the 2/3 rung of 320×180 renders 214×120
-    easu_inputs = {}
-    for label, scale in RUNGS.items():
-        eng.set_render_scale(scale)
-        easu_inputs[f"{label} rung"] = capture_easu_input(eng)
-    eng.set_render_scale(1.0)
-    small = Engine(settings=Settings().replace(rendering={
-        "render_width": VS_CPU[0], "render_height": VS_CPU[1],
-        "render_scale": RUNGS["2/3"]}), device="cuda")
-    easu_inputs["mixed ratio"] = capture_easu_input(small)
-    del small
-    easu_kernel_cases(easu_inputs, rep)
-    del easu_inputs
+    easu_kernel_cases(easu_inputs(eng), rep)
 
     # the main path: counts are reset right before and read right after
     phase("main path")
@@ -1338,6 +1533,9 @@ def main() -> int:
     u8 = out.cpu().numpy()
     log(f"frame u8: shape {u8.shape}, mean {u8.mean():.2f}, std "
         f"{u8.std():.2f}")
+
+    phase("widened settings")
+    widened = widened_frames(shipped, K)
 
     phase("in-line frame")
     # the in-line configuration (fused shading off), for the record: the
@@ -1470,6 +1668,7 @@ def main() -> int:
                        trace_substeps=substeps, ptxas=ptxas,
                        resident_blocks=occupancy, warp_rounds=k5_rounds,
                        shade_diffs=shade_diffs, whole_frame=whole,
+                       widened_frames=widened,
                        profile=prof, profile_inline=prof_inline,
                        rungs=rungs, rung_turns_ms=rung_turns,
                        profile_half_rung=prof_half, dynres_walk=walk,

@@ -8,12 +8,15 @@ implementations read identical bits (bf16 pairs packed in f32 words):
     hi: (3, T·896, 512) — levels 0..2 (512², 256², 128²)
 
 planes (r|g), (b|rough), (du|dv).  On the GPU both stay whole in device
-memory (no demand paging).  The sampling rule is the TPU kernel's: the
-level pair is chosen per (32, 128) tile of the padded image — the finest
-level any pixel of the tile wants — and only the tile's demand texture
-samples that pair; other textured pixels clamp the pair to ≥ 3.
-`sample_atlas` launches ``csrc/texture_kernel.cu`` (K3) for CUDA tensors
-and runs `_sample_ref` for CPU tensors.
+memory (no demand paging), and beside them a kernel-side copy with the
+three words of a texel interleaved into one 16-byte texel (`with_texels`:
+(T·128, 128, 4) and (T·896, 512, 4) words, the fourth 0; 68.4 MB for the
+nine 512² textures), so K3 reads a tap with one load.  The sampling rule
+is the TPU kernel's: the level pair is chosen per (32, 128) tile of the
+padded image — the finest level any pixel of the tile wants — and only
+the tile's demand texture samples that pair; other textured pixels clamp
+the pair to ≥ 3.  `sample_atlas` launches ``csrc/texture_kernel.cu`` (K3)
+for CUDA tensors and runs `_sample_ref` for CPU tensors.
 """
 from __future__ import annotations
 
@@ -48,6 +51,19 @@ _NORMAL_SCALE = 8.0
 class TextureAtlas(NamedTuple):
     lo: torch.Tensor     # (3, T·LO_ROWS, LO_COLS) f32 bf16 pairs
     hi: torch.Tensor     # (3, T·HI_ROWS, S0) f32 bf16 pairs
+    # K3's interleaved copy of the same words, (·, ·, 4): or None
+    lo4: torch.Tensor | None = None
+    hi4: torch.Tensor | None = None
+
+
+def with_texels(atlas: TextureAtlas) -> TextureAtlas:
+    """The atlas with K3's interleaved copy: each texel's three words and
+    a zero word side by side, 16 bytes a texel."""
+    def inter(planes):
+        return torch.cat([planes.permute(1, 2, 0),
+                          torch.zeros_like(planes[0])[..., None]],
+                         dim=-1).contiguous()
+    return atlas._replace(lo4=inter(atlas.lo), hi4=inter(atlas.hi))
 
 
 def atlas_count(atlas: TextureAtlas) -> int:
@@ -132,8 +148,11 @@ def load_atlas(tex_dir: str, names: list, device="cpu"):
                 r0 = ti * LO_ROWS + LO_OFFS[lv - HI_LEVELS]
                 for pi, pl in enumerate(planes):
                     lo[pi, r0:r0 + s, :s] = pl
-    return (TextureAtlas(lo=torch.from_numpy(lo).to(device),
-                         hi=torch.from_numpy(hi).to(device)), tuple(kept))
+    atlas = TextureAtlas(lo=torch.from_numpy(lo).to(device),
+                         hi=torch.from_numpy(hi).to(device))
+    if atlas.lo.device.type == "cuda":
+        atlas = with_texels(atlas)
+    return atlas, tuple(kept)
 
 
 # ---------------------------------------------------------------------------
@@ -239,22 +258,26 @@ def _sample_ref(atlas: TextureAtlas, t_count: int, tid, u, v, lvl):
 # K3 wrapper + public API
 # ---------------------------------------------------------------------------
 
-TEXTURE = K.register(K.CudaKernel("texture", "rtvb_texture",
+TEXTURE = K.register(K.CudaKernel("texture", "rtvb_texture_tiles",
                                   [K.P] * 6 + [K.I] * 3 + [K.P]))
 
 
 def _sample_cuda(atlas: TextureAtlas, t_count: int, tid, u, v, lvl):
-    """Launch K3 (csrc/texture_kernel.cu): (6, H, W) channel planes."""
+    """Launch K3 (csrc/texture_kernel.cu) on the atlas's interleaved copy
+    (`with_texels`): (6, H, W) channel planes."""
     H, W = u.shape
     dev = u.device
+    if atlas.lo4 is None or atlas.hi4 is None:
+        raise ValueError("K3 reads the atlas's interleaved copy: build it "
+                         "with image_textures.with_texels")
     args = [K.as_input("tid", tid, torch.int32, (H, W), dev),
             K.as_input("u", u, torch.float32, (H, W), dev),
             K.as_input("v", v, torch.float32, (H, W), dev),
             K.as_input("lvl", lvl, torch.float32, (H, W), dev),
-            K.as_input("atlas.lo", atlas.lo, torch.float32,
-                       (3, t_count * LO_ROWS, LO_COLS), dev),
-            K.as_input("atlas.hi", atlas.hi, torch.float32,
-                       (3, t_count * HI_ROWS, S0), dev)]
+            K.as_input("atlas.lo4", atlas.lo4, torch.float32,
+                       (t_count * LO_ROWS, LO_COLS, 4), dev),
+            K.as_input("atlas.hi4", atlas.hi4, torch.float32,
+                       (t_count * HI_ROWS, S0, 4), dev)]
     out = torch.empty((6, H, W), dtype=torch.float32, device=dev)
     TEXTURE.launch(dev, *args, H, W, t_count, out)
     return list(out.unbind(0))

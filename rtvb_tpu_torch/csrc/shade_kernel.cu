@@ -53,8 +53,12 @@
 // planes).  The combine's two passes (the confidence sum, then each tap
 // decoded again and merged) keep no tap's 11 values live across the
 // others.  The shipped frame's (n_local, n_taps) pairs are compile-time
-// instances with unrolled loops; any other pair runs the generic instance
-// with runtime counts.
+// instances with unrolled loops, their plane pointers in the launch's
+// parameters; any other pair runs the generic instance with runtime
+// counts: its plane pointers in a device table the wrapper allocates
+// (any number of taps), its staged tile and Sobol terms sized from the
+// counts in dynamic shared memory (opting past 48 KB), so only the card's
+// shared memory bounds the counts (the wrapper raises past it).
 #include "shade_math.cuh"
 
 namespace {
@@ -66,8 +70,11 @@ constexpr int WARPS = THREADS / 32;
 constexpr int TILE = THREADS;              // pixels of a staged tile
 constexpr int MIN_BLOCKS = 6;              // blocks an SM: ≤ 80 registers
 constexpr uint32_t PLANE_BYTES = TILE * sizeof(float);
-constexpr int MAX_TAPS = 4;                // ris_kernel.MAX_TAPS
-constexpr int MAX_LOCAL = 16;              // ris_kernel.MAX_LOCAL
+// the compile-time instances' limits: their pointers are passed by value
+// and their Sobol terms staged in a static array (the generic instance
+// has neither limit)
+constexpr int MAX_TAPS = 4;
+constexpr int MAX_LOCAL = 16;
 constexpr int MAX_DRAWS = 5 * MAX_LOCAL + 10 + MAX_TAPS;
 constexpr int ENV_N = 32;
 constexpr int N_IN_MAX = 15 + 1 + 9 * MAX_TAPS + 4;
@@ -86,11 +93,25 @@ __host__ __device__ constexpr int planes_in(int n_taps, bool bn) {
 }
 
 struct ShadeIO {
-  const float* in[N_IN_MAX];
+  const float* in[N_IN_MAX];   // the compile-time instances' planes
+  const float* const* in_tab;  // the generic instance's: a device table
   float* out_f[N_OUT_F];
   int* out_i[N_OUT_I];
   unsigned long long bulk;     // bit k: plane k's base is 16-byte aligned
 };
+
+// input plane k: by value in a compile-time instance, from the device
+// table in the generic one
+template <bool TAB>
+__device__ __forceinline__ const float* plane_in(const ShadeIO& io, int k) {
+  return TAB ? io.in_tab[k] : io.in[k];
+}
+// can a bulk copy take plane k (its base 16-byte aligned)?
+template <bool TAB>
+__device__ __forceinline__ bool bulk_ok(const ShadeIO& io, int k) {
+  return TAB ? (reinterpret_cast<uintptr_t>(io.in_tab[k]) & 15u) == 0u
+             : ((io.bulk >> k) & 1ull) != 0ull;
+}
 
 struct ShadeParams {
   const float* sf;
@@ -154,13 +175,14 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
 
 // one thread: the bulk copies of `tile`'s planes into the block's tile (the
 // aligned planes of a whole tile; none for the ragged last tile), or a
-// bare arrival
+// bare arrival.  n_bulk: the count of aligned planes
+template <bool TAB>
 __device__ __forceinline__ void issue_tile(const ShadeIO& io,
                                            const ShadeParams& P, int n_in,
-                                           int tile, float* planes,
-                                           uint64_t* bar) {
+                                           int n_bulk, int tile,
+                                           float* planes, uint64_t* bar) {
   const bool whole = (tile + 1) * TILE <= P.HW;
-  const uint32_t bytes = whole ? __popcll(io.bulk) * PLANE_BYTES : 0u;
+  const uint32_t bytes = whole ? n_bulk * PLANE_BYTES : 0u;
   if (bytes == 0u) {
     mbar_arrive(bar);
     return;
@@ -168,8 +190,9 @@ __device__ __forceinline__ void issue_tile(const ShadeIO& io,
   mbar_arrive_tx(bar, bytes);
   const size_t at = static_cast<size_t>(tile) * TILE;
   for (int k = 0; k < n_in; ++k)
-    if ((io.bulk >> k) & 1ull)
-      bulk_load(planes + k * TILE, io.in[k] + at, PLANE_BYTES, bar);
+    if (bulk_ok<TAB>(io, k))
+      bulk_load(planes + k * TILE, plane_in<TAB>(io, k) + at, PLANE_BYTES,
+                bar);
 }
 
 struct Reservoir {
@@ -359,8 +382,7 @@ __device__ __forceinline__ void shade_pixel(const ShadeIO& io,
       n_local > 0 ? static_cast<float>(1.0 / static_cast<double>(n_local))
                   : 0.0f;
 #pragma unroll (NL > 0 ? NL : 1)
-  for (int cand = 0; cand < (NL >= 0 ? NL : MAX_LOCAL); ++cand) {
-    if (NL < 0 && cand >= n_local) break;
+  for (int cand = 0; cand < n_local; ++cand) {
     const float u_slot = c.draw<BN>(k), u_take = c.draw<BN>(k + 1);
     const float u2 = c.draw<BN>(k + 3), u3 = c.draw<BN>(k + 4);
     k += 5;
@@ -449,16 +471,14 @@ __device__ __forceinline__ void shade_pixel(const ShadeIO& io,
                             : 0.0f;
     float m_sum = 0.0f;    // Python's sum(): 0 + M0 + M1 + ...
 #pragma unroll (NT > 0 ? NT : 1)
-    for (int t = 0; t < (NT >= 0 ? NT : MAX_TAPS); ++t) {
-      if (NT < 0 && t >= n_taps) break;
+    for (int t = 0; t < n_taps; ++t) {
       m_sum = m_sum + decode_tap(c, x + (16 + 9 * t) * TILE, depth, false).M;
     }
     const float c_total = 1.0f + m_sum;
     const float inv_ct = 1.0f / c_total;
     float wsum = inv_ct * r.phat * W_cur;
 #pragma unroll 1
-    for (int t = 0; t < (NT >= 0 ? NT : MAX_TAPS); ++t) {
-      if (NT < 0 && t >= n_taps) break;
+    for (int t = 0; t < n_taps; ++t) {
       const Tap tp = decode_tap(c, x + (16 + 9 * t) * TILE, depth, true);
       const float w_t = (tp.M * inv_ct) * tp.phat * tp.W;
       wsum = wsum + w_t;
@@ -511,17 +531,26 @@ template <int NL, int NT, bool BN>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     shade_kernel(const __grid_constant__ ShadeIO io,
                  const __grid_constant__ ShadeParams P) {
+  // the generic instance: its plane pointers in a device table, its Sobol
+  // terms after the planes in dynamic shared memory
+  constexpr bool TAB = NL < 0 || NT < 0;
   extern __shared__ __align__(128) float s_planes[];   // n_in × TILE
   __shared__ float s_sf[SF_LEN];
   __shared__ float s_envf[2 * ENV_N];
   __shared__ int s_envi[ENV_N];
-  __shared__ float s_sob[BN ? MAX_DRAWS : 1];
+  __shared__ float s_sob_fixed[BN && !TAB ? MAX_DRAWS : 1];
   __shared__ __align__(8) uint64_t s_full;   // the tile's planes are in
   __shared__ unsigned s_done;                 // warps done with a tile
+  __shared__ int s_n_bulk;                    // planes a bulk copy takes
   const int n_in = NT >= 0 ? planes_in(NT, BN) : P.n_in;
+  float* s_sob = TAB ? s_planes + n_in * TILE : s_sob_fixed;
   if (threadIdx.x == 0) {
     mbar_init(&s_full, 1);
     s_done = 0u;
+    int n_bulk = 0;
+    if (TAB)
+      for (int k = 0; k < n_in; ++k) n_bulk += bulk_ok<TAB>(io, k);
+    s_n_bulk = TAB ? n_bulk : __popcll(io.bulk);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   for (int i = threadIdx.x; i < SF_LEN; i += THREADS) s_sf[i] = P.sf[i];
@@ -532,10 +561,12 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     for (int i = threadIdx.x; i < P.n_draws; i += THREADS)
       s_sob[i] = to_unit_float(sobol(P.basis, P.frame, P.base_dim + i));
   __syncthreads();
-  if (threadIdx.x == 0) issue_tile(io, P, n_in, blockIdx.x, s_planes, &s_full);
+  const int n_bulk = s_n_bulk;
+  if (threadIdx.x == 0)
+    issue_tile<TAB>(io, P, n_in, n_bulk, blockIdx.x, s_planes, &s_full);
   const Tables tab{s_sf, s_envf, s_envi, s_sob};
-  const unsigned long long all_bulk =
-      n_in >= 64 ? ~0ull : (1ull << n_in) - 1ull;
+  // every plane comes in by a bulk copy (for a whole tile)
+  const bool all_bulk = n_bulk == n_in;
 
   // tile j of this block is blockIdx.x + j·grid, phase j of the barrier
   for (int j = 0;; ++j) {
@@ -546,10 +577,11 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     if (pix < P.HW) {
       // the planes no bulk copy brought: this thread's own slots
       const bool whole = (tile + 1) * TILE <= P.HW;
-      if (!whole || io.bulk != all_bulk)
+      if (!whole || !all_bulk)
         for (int q = 0; q < n_in; ++q)
-          if (!whole || !((io.bulk >> q) & 1ull))
-            s_planes[q * TILE + threadIdx.x] = __ldg(io.in[q] + pix);
+          if (!whole || !bulk_ok<TAB>(io, q))
+            s_planes[q * TILE + threadIdx.x] =
+                __ldg(plane_in<TAB>(io, q) + pix);
       shade_pixel<NL, NT, BN>(io, P, tab, s_planes + threadIdx.x, pix);
     }
     // the last warp done with the tile brings in the block's next one
@@ -560,15 +592,23 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
         __threadfence_block();
         asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
         const int next = tile + gridDim.x;
-        if (next < P.n_tiles) issue_tile(io, P, n_in, next, s_planes, &s_full);
+        if (next < P.n_tiles)
+          issue_tile<TAB>(io, P, n_in, n_bulk, next, s_planes, &s_full);
       }
     }
   }
 }
 
+// dynamic shared memory of a launch: the staged tile, and for the generic
+// instance its Sobol terms
+size_t shade_smem(const ShadeParams& P, bool generic, bool bn) {
+  return sizeof(float) * (static_cast<size_t>(P.n_in) * TILE +
+                          (generic && bn ? P.n_draws : 0));
+}
+
 template <int NL, int NT, bool BN>
 cudaError_t launch(const ShadeIO& io, const ShadeParams& P, cudaStream_t s) {
-  const size_t smem = sizeof(float) * P.n_in * TILE;
+  const size_t smem = shade_smem(P, NL < 0 || NT < 0, BN);
   // the blocks the card holds at once, no more than the tiles need
   static rtvb::GridCache cache;
   int grid = 0;
@@ -579,11 +619,17 @@ cudaError_t launch(const ShadeIO& io, const ShadeParams& P, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// the (n_local, n_taps) pairs with compile-time instances: the shipped
+// frame's with no local lights, (0, 3) and (0, 0); with lights the primary
+// vertex's 8 candidates + 3 taps and the secondary's 2 + none
+bool compiled_pair(int n_local, int n_taps) {
+  return (n_local == 0 || n_local == 8) && n_taps == 3 ||
+         (n_local == 0 || n_local == 2) && n_taps == 0;
+}
+
 template <bool BN>
 cudaError_t dispatch(const ShadeIO& io, const ShadeParams& P,
                      cudaStream_t s) {
-  // the shipped frame: no local lights (0, 3) / (0, 0); with lights the
-  // primary vertex's 8 candidates + 3 taps and the secondary 2 + none
   if (P.n_local == 0 && P.n_taps == 3) return launch<0, 3, BN>(io, P, s);
   if (P.n_local == 0 && P.n_taps == 0) return launch<0, 0, BN>(io, P, s);
   if (P.n_local == 8 && P.n_taps == 3) return launch<8, 3, BN>(io, P, s);
@@ -594,23 +640,31 @@ cudaError_t dispatch(const ShadeIO& io, const ShadeParams& P,
 }  // namespace
 
 // in / out_f / out_i: host arrays of device plane pointers, in
-// ris_kernel.fused_shade_cuda's order.  Returns a cudaError_t code.
-RTVB_EXPORT int rtvb_shade(const void* const* in, int n_in,
-                           void* const* out_f, void* const* out_i,
-                           const float* sf, const float* lf, const int* li,
-                           const float* envf, const int* envi,
-                           const int* basis, int H, int W, int y0,
-                           unsigned int frame, int K, int n_local, int n_taps,
-                           int base_dim, int ent_unreachable, int blue_noise,
-                           float m_cap, float dis_thr, void* stream) {
-  if (n_taps < 0 || n_taps > MAX_TAPS || n_local < 0 ||
-      n_local > MAX_LOCAL || K < 1 ||
-      n_in != planes_in(n_taps, blue_noise != 0))
+// ris_kernel.fused_shade_cuda's order; in_tab: device room for n_in
+// pointers, which the generic instance reads its planes from (copied here
+// on the stream; may be null for a pair with a compile-time instance).
+// Returns a cudaError_t code.
+RTVB_EXPORT int rtvb_shade_tab(const void* const* in, int n_in,
+                               void* const* out_f, void* const* out_i,
+                               const float* sf, const float* lf,
+                               const int* li, const float* envf,
+                               const int* envi, const int* basis, int H,
+                               int W, int y0, unsigned int frame, int K,
+                               int n_local, int n_taps, int base_dim,
+                               int ent_unreachable, int blue_noise,
+                               float m_cap, float dis_thr, void* in_tab,
+                               void* stream) {
+  const bool generic = !compiled_pair(n_local, n_taps);
+  if (n_taps < 0 || n_local < 0 || K < 1 ||
+      n_in != planes_in(n_taps, blue_noise != 0) ||
+      (generic && in_tab == nullptr) ||
+      (!generic && n_in > N_IN_MAX))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long HW = static_cast<long long>(H) * W;
   if (HW == 0) return 0;
   ShadeIO io;
   io.bulk = 0ull;
+  io.in_tab = static_cast<const float* const*>(in_tab);
   for (int i = 0; i < N_IN_MAX; ++i) {
     io.in[i] = i < n_in ? static_cast<const float*>(in[i]) : nullptr;
     if (i < n_in && reinterpret_cast<uintptr_t>(in[i]) % 16 == 0)
@@ -640,6 +694,11 @@ RTVB_EXPORT int rtvb_shade(const void* const* in, int n_in,
   P.m_cap = m_cap;
   P.dis_thr = dis_thr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (generic) {
+    const cudaError_t ec = cudaMemcpyAsync(
+        in_tab, in, sizeof(void*) * n_in, cudaMemcpyHostToDevice, s);
+    if (ec != cudaSuccess) return static_cast<int>(ec);
+  }
   const cudaError_t e =
       blue_noise ? dispatch<true>(io, P, s) : dispatch<false>(io, P, s);
   return static_cast<int>(e);

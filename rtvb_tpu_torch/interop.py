@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .assets.image_textures import TextureAtlas
+from .assets.image_textures import TextureAtlas, with_texels
 from .assets.materials import MaterialTable, material_table_from_numpy
 from .core.camera import Camera
 from .render.denoiser import DenoiserState
@@ -79,7 +79,8 @@ def sky(js, device="cpu") -> SkyState:
 
 
 def atlas(ja, device="cpu") -> TextureAtlas:
-    return TextureAtlas(lo=_t(ja.lo, device), hi=_t(ja.hi, device))
+    out = TextureAtlas(lo=_t(ja.lo, device), hi=_t(ja.hi, device))
+    return with_texels(out) if out.lo.device.type == "cuda" else out
 
 
 def camera(jc, device="cpu") -> Camera:

@@ -49,9 +49,9 @@ N_LI = 3
 ENV_N = sky_mod.ENV_W * sky_mod.ENV_H
 _ENV_OMEGA = 2.0 * math.pi / ENV_N
 
-# limits of the CUDA kernel (its pointer table and shared Sobol cache)
-MAX_TAPS = 4
-MAX_LOCAL = 16
+# K4's staged tile: 128 pixels of every input plane (csrc/shade_kernel.cu
+# TILE), and for its generic instance the launch's Sobol terms after it
+SHADE_TILE = 128
 
 
 class ShadeConfig(NamedTuple):
@@ -386,9 +386,9 @@ def fused_shade_plain(cfg: ShadeConfig, frame_idx, y0, sf, lf, li, envf,
 
 _PTRS = ctypes.POINTER(ctypes.c_void_p)
 SHADE = K.register(K.CudaKernel(
-    "shade", "rtvb_shade",
+    "shade", "rtvb_shade_tab",
     [_PTRS, K.I, _PTRS, _PTRS, K.P, K.P, K.P, K.P, K.P, K.P]
-    + [K.I] * 3 + [ctypes.c_uint32] + [K.I] * 6 + [K.F, K.F]))
+    + [K.I] * 3 + [ctypes.c_uint32] + [K.I] * 6 + [K.F, K.F, K.P]))
 
 
 # the form K4 takes the sine and cosine of one angle in (one sincosf);
@@ -410,6 +410,16 @@ def _ptr_array(tensors):
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
+def shade_smem_bytes(cfg: ShadeConfig) -> int:
+    """Dynamic shared memory a K4 launch at cfg's counts asks for at most
+    (its generic instance's: the staged tile of every input plane and the
+    launch's Sobol terms)."""
+    n_in = 15 + (1 + 9 * cfg.n_taps if cfg.n_taps else 0) \
+        + (4 if cfg.blue_noise else 0)
+    n_draws = 5 * cfg.n_local + 10 + cfg.n_taps
+    return 4 * (n_in * SHADE_TILE + (n_draws if cfg.blue_noise else 0))
+
+
 def fused_shade_cuda(cfg: ShadeConfig, frame_idx, y0, sf, lf, li, envf,
                      envi, p, n, wo, alb, rough, metal, trans, depth=None,
                      taps=(), bn=None) -> ShadeOut:
@@ -418,10 +428,16 @@ def fused_shade_cuda(cfg: ShadeConfig, frame_idx, y0, sf, lf, li, envf,
     H, W = p[0].shape
     dev = p[0].device
     K_ = cfg.k_slots
-    if not 0 <= cfg.n_taps <= MAX_TAPS:
-        raise ValueError(f"n_taps {cfg.n_taps} outside 0..{MAX_TAPS}")
-    if not 0 <= cfg.n_local <= MAX_LOCAL:
-        raise ValueError(f"n_local {cfg.n_local} outside 0..{MAX_LOCAL}")
+    if cfg.n_taps < 0 or cfg.n_local < 0:
+        raise ValueError(f"negative counts in {cfg}")
+    # the card's shared memory bounds the counts: the staged tile of every
+    # input plane must fit a block (with ~1 KB of the kernel's own tables)
+    limit = getattr(torch.cuda.get_device_properties(dev),
+                    "shared_memory_per_block_optin", None)
+    if limit is not None and shade_smem_bytes(cfg) + 1024 > limit:
+        raise ValueError(
+            f"K4 at n_taps {cfg.n_taps}, n_local {cfg.n_local} stages "
+            f"{shade_smem_bytes(cfg)} bytes a block; the card holds {limit}")
     if len(taps) != cfg.n_taps:
         raise ValueError(f"{len(taps)} taps given, cfg.n_taps {cfg.n_taps}")
     f32, i32 = torch.float32, torch.int32
@@ -450,12 +466,15 @@ def fused_shade_cuda(cfg: ShadeConfig, frame_idx, y0, sf, lf, li, envf,
                 for c in range(4)]
     out_i = torch.empty((len(OUT_I32), H, W), dtype=i32, device=dev)
     out_f = torch.empty((N_OUT - len(OUT_I32), H, W), dtype=f32, device=dev)
+    # room for the input planes' pointers, which the generic instance reads
+    # from device memory (the kernel copies them in on the stream)
+    in_tab = torch.empty(len(ins), dtype=torch.int64, device=dev)
     SHADE.launch(dev, _ptr_array(ins), len(ins),
                  _ptr_array(list(out_f)), _ptr_array(list(out_i)),
                  sf, lf, li, envf, envi, basis, H, W, int(y0),
                  int(frame_idx) & rng.M32, K_, cfg.n_local, cfg.n_taps,
                  cfg.base_dim, int(cfg.ent_unreachable), int(cfg.blue_noise),
-                 float(cfg.m_cap), float(cfg.dis_thr))
+                 float(cfg.m_cap), float(cfg.dis_thr), in_tab)
     it_i, it_f = iter(out_i), iter(out_f)
     return unflatten_out([next(it_i) if k in OUT_I32 else next(it_f)
                           for k in range(N_OUT)])

@@ -84,6 +84,8 @@ CASES = [
     ("canonical_taps1_white", 8, 0, 0, 1, False, False, 0),
     ("lights200_taps1_white", 200, 150, 4, 1, True, False, 5),
     ("lights200_taps3_bn", 200, 150, 4, 3, True, True, 0),
+    # counts past the compile-time instances' (K4's generic instance)
+    ("lights200_cand24_taps6_bn", 200, 150, 24, 6, True, True, 0),
 ]
 
 

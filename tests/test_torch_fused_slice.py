@@ -6,7 +6,10 @@ identical state carried across with rtvb_tpu_torch.interop; the same at
 the 2/3 rung of a 96×96 output (64×64 inside, exact 3:2 on both axes: the
 port's EASU against JAX's); and the port's fused frame against its own
 in-line frame.  The JAX path trace + denoise at 64×64 compiles once and
-serves both sizes' frames (only the post differs).
+serves both sizes' frames (only the post differs).  Whole frames at other
+settings use this harness from their own files (each compiles its own JAX
+frame, so they run beside this one): tests/test_torch_fused_norestir.py
+and tests/test_torch_fused_widened.py.
 
 Bars (why the whole-frame ones are statistical: tests/test_torch_slice.py):
 * G-buffers of frame 1: equal to 1e-4 on ≥ 99.9% of pixels per plane;
@@ -60,7 +63,8 @@ def _jax_trace_denoise_fn(je):
                               maxh_row=world.maxh_super[0])
         g, new_restir = jpt.render_frame(
             je.cfg, world, mats, lights, sky_state, cam, hist_cam, frame_idx,
-            je.width, je.height, rs_cfg, trace_fn, prev_restir=prev_restir,
+            je.width, je.height, rs_cfg, trace_fn,
+            prev_restir=prev_restir if rs_cfg.use_restir else None,
             light_remap=light_remap, entities=ent, atlas=atlas,
             shade_backend="xla", half_res_gi=rs_cfg.half_res_gi)
         rgb, new_d = _denoise_jit(g, dstate, je.settings.denoising)

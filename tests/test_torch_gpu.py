@@ -9,19 +9,27 @@ on ray counts that fill no whole 32-ray chunk and on an empty ray set;
 K6 also at every step 1-16, 24 and 32 on a 1080p G-buffer, on an image
 smaller than one tile and on an odd size (its shared-memory windows, with
 clamped borders), at phi_normal 32 and 128 (its generic instance), and
-refusing a step whose window passes a block's shared memory; K2 on rays
-that probe its box cull (tests/torch_tri_probes.py: the box's faces,
-edges and corners, origins inside it, zero direction components, parked
-rays, caps one float either side of a hit) against the flower soup, a
-padded random soup, a 2048-triangle soup (past 48 KB of shared memory)
-and a soup of padding, and at the frame's wave shapes; K4 on the six
+to the bit at phi_normal 80, 3, 2.5, 0.5 and 0 (torch.pow's CUDA rule)
+and at steps 126, 127, 128 and 256 (past 126 the windows' columns lie on
+the step's lattice); K2 on rays that probe its box cull
+(tests/torch_tri_probes.py: the box's faces, edges and corners, origins
+inside it, zero direction components, parked rays, caps one float either
+side of a hit, rays in the planes of tilted triangles, where the
+determinant is mostly rounding) against the flower soup, a padded random
+soup, a 2048-triangle soup (past 48 KB of shared memory), a soup of
+padding and lone tilted triangles, and at the frame's wave shapes; K3 on
+its interleaved atlas (and refusing an atlas without it); K4 on the eight
 cases of chip_smoke.py (the frame's own bounce inputs, synthetic lights,
-blue noise off, the generic instance, bounce 1 as the frame calls it),
-every instance with blue and white noise (a nonzero y0), pixel counts
-that leave a ragged last tile, and planes a bulk copy cannot take (not
-16-byte aligned); K4's sin_cos against torch.sin / torch.cos on every
-angle in [0, 2π]; K7 (EASU) bit-exact at the rungs' ratios 4:3, 3:2, 2:1
-and a mixed per-axis one, on images with flat patches (no direction)."""
+blue noise off, the generic instance at 5 candidates and 2 taps, at 24
+and 6 and at 40 and 8, bounce 1 as the frame calls it), every instance
+with blue and white noise (a nonzero y0), pixel counts that leave a
+ragged last tile, and planes a bulk copy cannot take (not 16-byte
+aligned); K4's sin_cos against torch.sin / torch.cos on every angle in
+[0, 2π]; K7 (EASU) bit-exact at the rungs' ratios 4:3, 3:2, 2:1 and a
+mixed per-axis one, on images with flat patches (no direction), at the
+rungs' 1080p shapes, on a downscale and with non-finite pixels; whole
+frames on the card at atrous_iterations 9 with phi_normal 80 and at
+restir_temporal_samples 6."""
 import numpy as np
 import pytest
 import torch
@@ -178,6 +186,34 @@ def test_tri_kernel_frame_shapes(engine, soup, shape):
     _tri_both(o, d, tri, None)
 
 
+# rays in the planes of lone tilted triangles: the cull drops none of the
+# plain version's hits, however far off the triangle rounding puts them
+@pytest.mark.parametrize("seed", [0, 1])
+def test_tri_kernel_in_plane_rays(engine, seed):
+    from torch_tri_probes import in_plane_rays, in_plane_soup
+    soup = in_plane_soup(seed)
+    o, d = in_plane_rays(soup, seed, n=2000)
+    dev = engine.device
+    o = tuple(torch.from_numpy(a).to(dev) for a in o)
+    d = tuple(torch.from_numpy(a).to(dev) for a in d)
+    b = _tri_both(o, d, torch.from_numpy(soup).to(dev), None)
+    assert int(b.hit.sum()) >= 10
+
+
+def test_tri_kernel_plane_ray(engine):
+    """The ray in PLANE_ROW's plane gets the plain version's hit, t = 2,
+    u = 0, v = 1, though it passes the triangle's padded box."""
+    from rtvb_tpu_torch.ops import triangles
+    from torch_tri_probes import PLANE_RAY, PLANE_ROW
+    dev = engine.device
+    o, d = (tuple(torch.tensor(a[i:i + 1], device=dev) for i in range(3))
+            for a in PLANE_RAY)
+    h = triangles.intersect_packed_cuda(
+        o, d, torch.from_numpy(PLANE_ROW[None]).to(dev))
+    assert (bool(h.hit[0]), int(h.tri[0]), float(h.t[0]), float(h.u[0]),
+            float(h.v[0])) == (True, 0, 2.0, 0.0, 1.0)
+
+
 def test_tri_wrapper_counts_and_raises(engine):
     from rtvb_tpu_torch.ops import triangles
     o, d = _rays(engine, 14, (20, 30))
@@ -208,11 +244,17 @@ def test_texture_kernel_matches_plain(engine):
     u = (torch.rand(H, W, generator=g) * 3).to(dev)
     v = (torch.rand(H, W, generator=g) * 3).to(dev)
     lvl = it.level_from_lod((torch.rand(H, W, generator=g) * 0.02).to(dev))
-    a = it._sample_cuda(engine.texture_atlas, t_count, tid, u, v, lvl)
-    b = it._sample_ref(engine.texture_atlas, t_count, tid, u, v, lvl)
+    atlas = engine.texture_atlas
+    a = it._sample_cuda(atlas, t_count, tid, u, v, lvl)
+    b = it._sample_ref(atlas, t_count, tid, u, v, lvl)
     use = tid >= 0
     for x, y in zip(a, b):
         assert _bits_equal(torch.where(use, x, 0.0), torch.where(use, y, 0.0))
+    # the kernel reads only the interleaved copy
+    before = it.TEXTURE.launches
+    with pytest.raises(ValueError):
+        it._sample_cuda(atlas._replace(hi4=None), t_count, tid, u, v, lvl)
+    assert it.TEXTURE.launches == before
 
 
 @pytest.mark.parametrize("bilinear", [False, True])
@@ -318,17 +360,32 @@ def test_atrous_kernel_generic_instance(cuda, image, phi_normal, step):
                           phi_normal)
 
 
-def test_atrous_kernel_refuses_a_window_past_shared_memory(cuda):
-    # step 126's window is the widest that fits the 227 KB a block may
-    # hold on an H100; step 127's is refused before anything launches
-    from rtvb_tpu_torch.ops.denoise import atrous_kernel
-    args = _atrous_inputs(40, 300, 3, cuda)
+def _atrous_bits(args, step, phi_normal):
+    from rtvb_tpu_torch.ops.denoise import atrous_kernel, passes
     before = atrous_kernel.ATROUS.launches
-    with pytest.raises(RuntimeError):
-        atrous_kernel._atrous_cuda(*args, 127, 2.0, 64.0, 0.05)
-    assert atrous_kernel.ATROUS.launches == before
-    # the refusal leaves no error behind for the next launch
-    _atrous_against_plain(args, 126, 64.0)
+    a = atrous_kernel._atrous_cuda(*args, step, 2.0, phi_normal, 0.05)
+    assert atrous_kernel.ATROUS.launches == before + 1
+    b = passes.atrous_pass_plain(*args, step, 2.0, phi_normal, 0.05)
+    for x, y in zip(a, b):
+        assert _bits_equal(x, y)
+
+
+# step 126's window of consecutive columns is the widest that fits the
+# 227 KB a block may hold on an H100; from 127 the columns lie on the
+# step's lattice too; every step launches and matches to the bit
+@pytest.mark.parametrize("step", [126, 127, 128, 256])
+@pytest.mark.parametrize("image", ["40x300", "1919x1079"])
+def test_atrous_kernel_windows_past_shared_memory(cuda, image, step):
+    W, H = map(int, image.split("x"))
+    _atrous_bits(_atrous_inputs(H, W, step, cuda), step, 64.0)
+
+
+# any phi_normal (the dev panel steps 64 to 80.0): torch.pow's rule on
+# CUDA, held to the bit, at a step with a compile-time instance and not
+@pytest.mark.parametrize("phi_normal", [80.0, 3.0, 2.5, 0.5, 0.0])
+@pytest.mark.parametrize("step", [1, 8, 128])
+def test_atrous_kernel_any_phi_normal(cuda, phi_normal, step):
+    _atrous_bits(_atrous_inputs(45, 300, 7, cuda), step, phi_normal)
 
 
 def test_wrapper_raises_on_wrong_input(cuda):
@@ -371,7 +428,7 @@ def _shade_case(cases, case):
     return name, cases[name]
 
 
-@pytest.mark.parametrize("case", ["a", "b", "c", "d", "e", "f"])
+@pytest.mark.parametrize("case", ["a", "b", "c", "d", "e", "f", "g", "h"])
 def test_shade_kernel_matches_plain(shade_cases, case):
     smoke, cases = shade_cases
     name, (args, kw) = _shade_case(cases, case)
@@ -400,7 +457,7 @@ def _white_noise(args, kw, y0):
 # every compile-time instance and the generic one, with blue noise and
 # white (rows offset by a nonzero y0, which only white noise reads)
 @pytest.mark.parametrize("noise", ["blue", "white y0=61"])
-@pytest.mark.parametrize("case", ["a", "b", "c", "e", "f"])
+@pytest.mark.parametrize("case", ["a", "b", "c", "e", "f", "g"])
 def test_shade_kernel_instances(shade_cases, case, noise):
     smoke, cases = shade_cases
     name, (args, kw) = _shade_case(cases, case)
@@ -412,7 +469,7 @@ def test_shade_kernel_instances(shade_cases, case, noise):
 # pixel counts that leave a ragged last 128-pixel tile (or no whole tile)
 @pytest.mark.parametrize("hw", [(1, 1), (5, 7), (3, 43), (11, 128),
                                 (61, 97)])
-@pytest.mark.parametrize("case", ["a", "d", "e", "f"])
+@pytest.mark.parametrize("case", ["a", "d", "e", "f", "g"])
 def test_shade_kernel_ragged_tiles(shade_cases, case, hw):
     smoke, cases = shade_cases
     name, (args, kw) = _shade_case(cases, case)
@@ -433,7 +490,7 @@ def _misaligned(t):
 
 # planes a bulk copy cannot take: every plane, or only the taps' planes
 @pytest.mark.parametrize("which", ["all", "taps"])
-@pytest.mark.parametrize("case", ["a", "e"])
+@pytest.mark.parametrize("case", ["a", "e", "h"])
 def test_shade_kernel_misaligned_planes(shade_cases, case, which):
     smoke, cases = shade_cases
     name, (args, kw) = _shade_case(cases, case)
@@ -478,7 +535,11 @@ def test_shade_wrapper_counts_and_raises(shade_cases):
 # (in_h, in_w, out_h, out_w): 4:3, 3:2, 2:1 on ragged sizes; 214×120 →
 # 320×180 (2/3 of 320×180, the axes' ratios differ)
 EASU_CASES = {"4:3": (45, 60, 60, 80), "3:2": (40, 66, 60, 99),
-              "2:1": (37, 50, 74, 100), "mixed": (120, 214, 180, 320)}
+              "2:1": (37, 50, 74, 100), "mixed": (120, 214, 180, 320),
+              "1/2 rung": (540, 960, 1080, 1920),
+              "2/3 rung": (720, 1280, 1080, 1920),
+              "3/4 rung": (810, 1440, 1080, 1920),
+              "downscale": (90, 130, 37, 51)}
 
 
 def _easu_image(h, w, seed, device):
@@ -499,6 +560,20 @@ def test_easu_kernel_matches_plain(cuda, case):
     assert _bits_equal(a, b)
 
 
+# non-finite pixels: the kernel's NaN-propagating clamps give the plain
+# version's bits, NaNs included
+def test_easu_kernel_non_finite_pixels(cuda):
+    from rtvb_tpu_torch.ops import easu_kernel
+    img = _easu_image(37, 50, 8, cuda)
+    img[5, 7] = float("nan")
+    img[20, 30, 1] = float("inf")
+    img[30, 3, 2] = -float("inf")
+    a = easu_kernel._easu_cuda(img, 74, 100)
+    b = easu_kernel.easu_plain(img, 74, 100)
+    assert bool(torch.isnan(b).any())
+    assert _bits_equal(a, b)
+
+
 def test_easu_wrapper_counts_and_raises(cuda):
     from rtvb_tpu_torch.ops import easu_kernel
     img = _easu_image(20, 30, 7, cuda)
@@ -512,3 +587,30 @@ def test_easu_wrapper_counts_and_raises(cuda):
     with pytest.raises(ValueError):
         easu_kernel._easu_cuda(img.cpu(), 40, 60)
     assert easu_kernel.EASU.launches == before + 1
+
+
+# whole frames on the card at settings the dev panel reaches past the
+# shipped ones: K6 at steps up to 256 with phi_normal 80, K4's generic
+# instance with 6 taps; each launched as the frame runs it
+@pytest.mark.parametrize("setting", ["atrous 9, phi_normal 80",
+                                     "restir taps 6"])
+def test_engine_frame_at_widened_settings(cuda, setting):
+    from rtvb_tpu_torch.core.config import Settings
+    from rtvb_tpu_torch.render.renderer import Engine
+    st = Settings().replace(rendering={"render_width": 256,
+                                       "render_height": 144})
+    if setting.startswith("atrous"):
+        st = st.replace(denoising={"atrous_iterations": 9,
+                                   "phi_normal": 80.0})
+    else:
+        st = st.replace(rendering={"restir_temporal_samples": 6})
+    eng = Engine(settings=st, device=cuda)
+    K.reset_launch_counts()
+    for _ in range(2):
+        out = eng.render_realtime_device()
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    assert counts["atrous"] == 2 * st.denoising.atrous_iterations
+    assert counts["shade"] == 2 * st.rendering.total_bounce_limit
+    u8 = out.cpu().numpy()
+    assert u8.shape == (144, 256, 3) and u8.std() > 1.0

@@ -129,3 +129,46 @@ def test_probe_rays_match_jax(with_cap):
         np.testing.assert_allclose(getattr(ph, f).numpy(),
                                    np.asarray(getattr(jh, f)), rtol=1e-6,
                                    atol=1e-6, err_msg=f)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_in_plane_rays_match_jax(seed):
+    """The plain version against the XLA intersector on rays in, or a few
+    ulps off, the planes of tilted triangles (tests/torch_tri_probes.py
+    `in_plane_rays`), where the determinant is mostly rounding: the hits,
+    the triangle and t, u, v as for the other probes."""
+    from torch_tri_probes import in_plane_rays, in_plane_soup
+    tri = in_plane_soup(seed)
+    o, d = in_plane_rays(tri, seed)
+    with jax.disable_jit():
+        jh = jtri.intersect_packed_xla(
+            tuple(jnp.asarray(a) for a in o), tuple(jnp.asarray(a) for a in d),
+            jnp.asarray(tri))
+    to, td = _torch_rays(o, d)
+    ph = ptri.intersect_packed(to, td, torch.from_numpy(tri))
+    hit = np.asarray(jh.hit)
+    assert hit.sum() >= 10
+    np.testing.assert_array_equal(ph.hit.numpy(), hit)
+    np.testing.assert_array_equal(ph.tri.numpy(), np.asarray(jh.tri))
+    for f in ("t", "u", "v"):
+        np.testing.assert_allclose(getattr(ph, f).numpy(),
+                                   np.asarray(getattr(jh, f)), rtol=1e-6,
+                                   atol=1e-6, err_msg=f)
+
+
+def test_plane_ray_hit_lies_outside_the_padded_box():
+    """PLANE_RAY: the plain version reports a hit at t = 2, u = 0, v = 1
+    on PLANE_ROW, and the ray passes the triangle's box padded by 1e-3
+    (a box cull with a fixed margin drops this hit)."""
+    from torch_tri_probes import PAD, PLANE_RAY, PLANE_ROW, soup_box
+    o, d = (tuple(torch.tensor(a[i:i + 1]) for i in range(3))
+            for a in PLANE_RAY)
+    h = ptri.intersect_packed(o, d, torch.from_numpy(PLANE_ROW[None]))
+    assert bool(h.hit[0]) and int(h.tri[0]) == 0
+    assert (float(h.t[0]), float(h.u[0]), float(h.v[0])) == (2.0, 0.0, 1.0)
+    lo, hi = soup_box(PLANE_ROW[None])
+    lo, hi = lo.astype(np.float64) - PAD, hi.astype(np.float64) + PAD
+    ro, rd = (a.astype(np.float64) for a in PLANE_RAY)
+    with np.errstate(divide="ignore"):
+        t0, t1 = (lo - ro) / rd, (hi - ro) / rd
+    assert np.minimum(t0, t1).max() > np.maximum(t0, t1).min()

@@ -15,6 +15,14 @@ nonzero e1 (the rows the sweep tests):
 - rays aimed at triangle centroids, capped at the plain version's hit t,
   one float below it and one float above it (just short and just past).
 Returns (o, d, cap) as float32 numpy arrays, cap 1e30 where uncapped.
+
+`in_plane_rays(soup, seed)` builds rays that start in, or within a few
+ulps of, the plane of each of the soup's triangles, 2 and 20 units from
+it, and run in that plane: there Möller–Trumbore's determinant is mostly
+rounding, and the plain version reports "hits" far from the triangle,
+which a box cull padded by a fixed margin drops.  `in_plane_soup(seed)`
+is such a soup: the row of PLANE_RAY's hit and tilted triangles with
+edges 1.0 and 2.0.
 """
 from __future__ import annotations
 
@@ -23,6 +31,19 @@ import torch
 
 BIG = np.float32(1e30)
 PAD = np.float32(1e-3)
+
+
+# a tilted triangle and a ray in its plane, in exact float32: the plain
+# version reports a hit at t = 2.0, u = 0, v = 1, and the ray does not
+# reach the triangle's box padded by 1e-3
+PLANE_ROW = np.array([25.81646728515625, 33.664222717285156,
+                      13.96352481842041, 0.0, -1.7159966230392456,
+                      1.027305006980896, -1.8524398803710938,
+                      -0.12752188742160797, 0.9550940990447998], np.float32)
+PLANE_RAY = (np.array([24.085620880126953, 32.62156677246094,
+                       15.408795356750488], np.float32),
+             np.array([-0.5345049500465393, 0.812460720539093,
+                       -0.23283487558364868], np.float32))
 
 
 def soup_box(soup):
@@ -46,6 +67,58 @@ def random_soup(n, seed, lo=(10, 4, 10), hi=(54, 20, 54), size=2.0):
     e1 = rng.normal(0, size, (n, 3)).astype(np.float32)
     e2 = rng.normal(0, size, (n, 3)).astype(np.float32)
     return np.concatenate([v0, e1, e2], axis=1).astype(np.float32)
+
+
+def tilted_soup(n, edge, seed):
+    """n triangles with both edges `edge` long in random directions (so
+    their planes are tilted against every axis), packed as [v0 | e1 | e2]."""
+    rng = np.random.default_rng(seed)
+    v0 = rng.uniform([10, 4, 10], [54, 20, 54], (n, 3))
+    e1 = _unit(rng.normal(size=(n, 3))) * edge
+    e2 = _unit(rng.normal(size=(n, 3))) * edge
+    return np.concatenate([v0, e1, e2], axis=1).astype(np.float32)
+
+
+def in_plane_soup(seed=0):
+    """PLANE_ROW, 8 tilted triangles with edges 1.0 and 8 with edges 2.0,
+    each followed by 3 rows of padding: a lone triangle under each of
+    K2's 4-row cluster boxes, whose box is then the triangle's own."""
+    rows = np.concatenate([PLANE_ROW[None], tilted_soup(8, 1.0, seed),
+                           tilted_soup(8, 2.0, seed + 1)])
+    out = np.zeros((4 * len(rows), 9), np.float32)
+    out[::4] = rows
+    return out
+
+
+def _ulps(rng, x, k=2):
+    """x moved by up to k float32 ulps in each coordinate."""
+    step = rng.integers(-k, k + 1, x.shape).astype(np.float32)
+    return (x + step * np.spacing(np.abs(x))).astype(np.float32)
+
+
+def in_plane_rays(soup, seed: int = 0, n: int = 300, dists=(2.0, 20.0)):
+    """For each live row and each distance r: n rays from points of the
+    row's plane up to r from its centroid, in directions of that plane
+    (origins and directions then moved by up to 2 ulps), and PLANE_RAY.
+    Returns (o, d) as tuples of float32 numpy arrays."""
+    soup = np.asarray(soup, np.float32)
+    rng = np.random.default_rng(seed)
+    os_, ds = [PLANE_RAY[0][None]], [PLANE_RAY[1][None]]
+    for row in soup[np.any(soup[:, 3:6] != 0, axis=1)].astype(np.float64):
+        v0, e1, e2 = row[0:3], row[3:6], row[6:9]
+        centre = v0 + (e1 + e2) / 3.0
+        for r in dists:
+            a = rng.normal(size=(n, 2))
+            a = _unit(a[:, :1] * e1 + a[:, 1:] * e2)
+            o = centre + rng.uniform(0.0, r, (n, 1)) * a
+            w = rng.normal(size=(n, 2))
+            w = _unit(w[:, :1] * e1 + w[:, 1:] * e2)
+            os_.append(_ulps(rng, o.astype(np.float32)))
+            ds.append(_ulps(rng, w.astype(np.float32)))
+    o = np.concatenate(os_).astype(np.float32)
+    d = np.concatenate(ds).astype(np.float32)
+    return (tuple(o[:, i].copy() for i in range(3)),
+            tuple(d[:, i].copy() for i in range(3)))
 
 
 def _unit(v):
