@@ -58,7 +58,21 @@
    (K7 once a frame, K4 three times, K1-K3, K5, K6 launched); the rungs
    and the native frame in turns, and a profile at the 1/2 rung; a walk
    of the DynamicResolution controller fed with measured frame times; two
-   frames at the 2/3 rung of 384×216 on the card against the CPU.
+   frames at the 2/3 rung of 384×216 on the card against the CPU;
+9. the gameplay path (the interactive app's Engine calls, 1920×1080, the
+   shipped settings with block_highlight): set_sky to midnight, aim at
+   the ground, pick_block (timed), warm_light_variant_async, a lantern
+   placed on the picked face (the edit latency: set_block through the
+   first frame after it), the lit frames with their own launch counts
+   (K4 at (8 candidates, 3 taps) and (2, 0)) and in turns with the
+   shipped unlit frame; K4's lit instances and K2 on the lit frame's own
+   calls, bit for bit; the lantern deleted, 500 bricks by set_blocks in
+   place of the visible ground (the exception list grows to 1024, the
+   march's tables unchanged) and K1 on the next frame's own calls, bit for
+   bit, and in turns against the tables from before the edit; a UI overlay and apply_settings with pre_pass,
+   lens_flare, crosshair and the Preetham sky, two frames; then frames
+   1 and 2 of the lit, highlighted night world at 320×180 on the card
+   against the CPU, and the pick on both equal.
 
 Exits non-zero, without the final line, on any failure or without a card.
 The last line is {"ok": true, "device": {...}}; the line before it lists
@@ -109,11 +123,11 @@ RUNG_VS_CPU = (384, 216)      # card-vs-CPU at the 2/3 rung: 256×144 inside
 # the least time the card could take for a kernel's work: its bytes (each
 # input read once, each output written once) over the memory rate, or its
 # operations over the f32 rate outside the tensor cores, whichever is
-# larger (NVIDIA H100 SXM data sheet, at its 700 W limit)
+# larger (NVIDIA H100 SXM data sheet, at its 700 W limit).  The f32 rate
+# of 67 T/s counts an FMA as two operations; every kernel builds with
+# --fmad=false, so each product and each sum issues on its own, at half
+# that rate
 HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-# f32 instructions that are not FMAs issue at half that (reported beside
-# K7's bound, not used in it)
 F32_NON_FMA_OPS_PER_S = 33.5e12
 
 
@@ -210,7 +224,7 @@ def errors(a, b):
 def bound_ms(n_bytes: float, n_ops: float):
     """(bound ms, "bytes" or "operations")."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = n_ops / F32_NON_FMA_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1090,14 +1104,19 @@ def copy_states(src, dst):
     dst.frame_index = src.frame_index
 
 
-def whole_frame_vs_cpu(settings):
+def whole_frame_vs_cpu(settings, setup=None):
     """Frames 1 and 2 with the kernels on the card against the plain
     versions on the CPU; frame 2 starts both from the card's frame-1
-    state.  Bars of tests/test_torch_slice.py."""
+    state.  Bars of tests/test_torch_slice.py.  setup(engine), if given,
+    runs on both engines first; what it returns must agree."""
     import torch
     from rtvb_tpu_torch.render.renderer import Engine
     gpu = Engine(settings=settings, device="cuda")
     cpu = Engine(settings=settings, device="cpu")
+    if setup is not None:
+        got = setup(gpu), setup(cpu)
+        log(f"  set-up on the card / the CPU: {got[0]} / {got[1]}")
+        check(got[0] == got[1], f"set-up differs: {got}")
     width, height = gpu.width, gpu.height
     results = []
     for frame in range(2):
@@ -1116,6 +1135,8 @@ def whole_frame_vs_cpu(settings):
                 for i in range(3):
                     planes.append((f"{name}{i}", getattr(gg, name)[i],
                                    getattr(cg, name)[i]))
+            if gg.highlight is not None:
+                planes.append(("highlight", gg.highlight, cg.highlight))
             for name, a, b in planes:
                 a, b = a.cpu().numpy(), b.numpy()
                 frac = float(np.mean(np.isclose(a, b, rtol=1e-4, atol=1e-4)))
@@ -1180,18 +1201,10 @@ def easu_kernel_cases(inputs: dict, rep: Report):
         return 0.0, 0.0
     for label, (img, oh, ow) in inputs.items():
         h, w = img.shape[:2]
-        work = easu_work(img, oh, ow)
         rep.case("easu", f"{label}: {w}x{h} -> {ow}x{oh}",
                  lambda i=img, a=oh, b=ow: EK._easu_cuda(i, a, b),
                  lambda i=img, a=oh, b=ow: EK.easu_plain(i, a, b), cmp,
-                 work)
-        # for the record, not the bound: the library builds with
-        # --fmad=false, so each product and sum issues on its own, at half
-        # the FMA rate the bound assumes
-        rep.cases[-1]["bound_ms_non_fma"] = work[1] / F32_NON_FMA_OPS_PER_S \
-            * 1e3
-        log(f"    its operations at the non-FMA rate: "
-            f"{rep.cases[-1]['bound_ms_non_fma']:.4f} ms")
+                 easu_work(img, oh, ow))
 
 
 def check_frame(out, shape, label):
@@ -1272,6 +1285,255 @@ def widened_frames(shipped, K, n_frames: int = 2) -> dict:
         out[label] = dict(frame_ms=times, launches=counts)
         del eng
     return out
+
+
+# ---------------------------------------------------------------------------
+# The gameplay path: the interactive app's Engine calls at 1920×1080
+# ---------------------------------------------------------------------------
+
+# the camera aimed at the ground, the centre ray's voxel within the pick's
+# reach (a +y face at 6.3 units)
+GAMEPLAY_POSE = dict(pos=(32.0, 14.0, 8.0), yaw=1.1, pitch=-0.9)
+DEV_PANEL = dict(denoising={"pre_pass": True},
+                 post_processing={"lens_flare": True, "crosshair": True},
+                 sky={"model": "preetham"})
+
+
+def gameplay_settings(width: int, height: int):
+    """The interactive app's config: the shipped settings with the picked
+    block's highlight."""
+    from rtvb_tpu_torch.core.config import Settings
+    return Settings().replace(rendering={
+        "render_width": width, "render_height": height,
+        "block_highlight": True})
+
+
+def night_with_lantern(eng):
+    """set_sky to midnight, aim at the ground, pick, and place a lantern on
+    the picked face (the app's right click) → the pick."""
+    from rtvb_tpu_torch.assets import blocks as B
+    eng.set_sky(time_of_day=0.0)
+    eng.set_camera(**GAMEPLAY_POSE)
+    pick = eng.pick_block()
+    hit, (x, y, z), n = pick
+    check(hit, f"the gameplay pose picks nothing: {pick}")
+    eng.set_block(int(x + n[0]), int(y + n[1]), int(z + n[2]), B.LANTERN)
+    check(eng._n_local > 0, "the lantern lit no light")
+    return pick
+
+
+def surface_bricks(eng):
+    """(500, 3) voxel coordinates: the top solid voxel of each column x
+    5-54, z 5-14, in front of and below the gameplay camera.  Bricks there
+    deviate from the terrain schema but occupy what was occupied: the
+    exception list grows and the march's tables (occupancy, distance
+    field, height envelope) stay as they were."""
+    cfg = eng.cfg
+    xs, zs = np.meshgrid(np.arange(5, 55), np.arange(5, 15))
+    xs, zs = xs.ravel(), zs.ravel()
+    cols = eng.world.colmask.cpu().numpy().view(np.uint32)
+    top = np.array([int(cols[x * cfg.z + z]).bit_length() - 1
+                    for x, z in zip(xs, zs)])
+    check((top >= 0).all(), "a column without a solid voxel")
+    return np.stack([xs, top, zs], axis=1)
+
+
+def bit_exact_shade(a, b):
+    """K4 against its plain version: every output plane equal to the bit."""
+    d = shade_diff(a, b)
+    check(d["int_agree"] == 1.0 and not d["float_bits_differ"],
+          f"lit K4 differs: ints agree {d['int_agree']}, float values "
+          f"differing {d['float_bits_differ']}")
+    return 0.0, 0.0
+
+
+def gameplay(shipped, K, rep: Report) -> dict:
+    """The gameplay path at 1920×1080: Engine(gameplay_settings) on the
+    card; set_sky(0); aim, pick_block and place a lantern on the picked
+    face; warm_light_variant_async; the lit frames (launch counts reset
+    just before, read just after), then in turns with the shipped unlit
+    frame; K4's lit instances and K2 on the lit frame's own calls, bit for
+    bit; delete the lantern; 500 bricks by set_blocks in place of the
+    visible ground (the exception list grows past 512) and K1 on the
+    frame's own calls with the grown list, bit for bit; a UI overlay and
+    apply_settings with the four dev-panel settings, two frames.  Prints
+    the lit frame's median ms, the edit latency (set_block through the
+    first frame after it) and the pick's time."""
+    import torch
+    from rtvb_tpu_torch.assets import blocks as B
+    from rtvb_tpu_torch.ops import dda, triangles
+    from rtvb_tpu_torch.render import ris_kernel as RK
+    from rtvb_tpu_torch.render.renderer import Engine
+    fw, fh = FRAME
+    shape = (fh, fw, 3)
+    eng = Engine(settings=gameplay_settings(fw, fh), device="cuda")
+    eng.set_sky(time_of_day=0.0)
+    eng.set_camera(**GAMEPLAY_POSE)
+    for _ in range(2):                 # unlit: the app's frames before
+        eng.render_realtime_device()
+    sync()
+    picks = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        pick = eng.pick_block()
+        picks.append((time.perf_counter() - t0) * 1e3)
+    pick_ms = statistics.median(picks)
+    hit, (x, y, z), n = pick
+    check(hit and n == (0.0, 1.0, 0.0), f"gameplay pick {pick}")
+    log(f"pick_block: {pick}; median {pick_ms:.3f} ms of 10 "
+        f"{[round(t, 3) for t in picks]}")
+
+    warm = eng.warm_light_variant_async()
+    check(warm is not None, "warm_light_variant_async returned None")
+    t0 = time.perf_counter()
+    warm.join(timeout=300)
+    check(not warm.is_alive(), "the light-variant warm-up did not end")
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    log(f"light-variant warm-up: joined after {warm_ms:.1f} ms")
+
+    soup0 = eng.entity_buffers().tri_packed.shape[0]
+    sync()
+    t0 = time.perf_counter()
+    eng.set_block(int(x + n[0]), int(y + n[1]), int(z + n[2]), B.LANTERN)
+    edit_host_ms = (time.perf_counter() - t0) * 1e3
+    out = eng.render_realtime_device()
+    sync()
+    edit_ms = (time.perf_counter() - t0) * 1e3
+    check(eng._n_local == eng.settings.rendering.local_light_candidates,
+          "the lantern did not light the frame")
+    soup1 = eng.entity_buffers().tri_packed.shape[0]
+    log(f"edit latency (set_block through the first frame after it): "
+        f"{edit_ms:.3f} ms, of which set_block {edit_host_ms:.3f} ms; "
+        f"lights {eng.lights.count}, soup rows {soup0} -> {soup1}")
+    check(soup1 > soup0, "the lantern did not grow the soup")
+    check_frame(out, shape, "first lit frame")
+
+    n_warm, n_timed = 2, 8
+    K.reset_launch_counts()
+    lit_ms, lit_times, out, lit_enq = frame_run(eng, n_warm, n_timed)
+    counts = K.launch_counts()
+    n_frames = n_warm + n_timed
+    log(f"lit gameplay frame {fw}x{fh}: median {lit_ms:.3f} ms "
+        f"{[round(t, 3) for t in lit_times]}; host enqueue median "
+        f"{lit_enq:.3f} ms; launches {counts}")
+    for name in KERNELS:
+        if name in RUNG_ONLY:
+            check(counts.get(name, 0) == 0, f"gameplay launched {name}")
+        else:
+            check(counts.get(name, 0) > 0,
+                  f"kernel {name} never launched in the gameplay frames")
+    check(counts["shade"] == 3 * n_frames,
+          f"gameplay: shade launched {counts['shade']} times")
+    check_frame(out, shape, "lit gameplay frame")
+    turns = interleaved({"lit gameplay": eng, "shipped": shipped}, n_pairs=8)
+    for label, ts in turns.items():
+        log(f"frame {fw}x{fh} in turns, {label}: median "
+            f"{statistics.median(ts):.3f} ms {[round(t, 3) for t in ts]}")
+
+    # K4's lit instances and K2 on the lit frame's own calls
+    calls = capture_shade_calls(eng)
+    configs = [(a[0].n_local, a[0].n_taps) for a, _ in calls]
+    check(configs == [(8, 3), (2, 0), (2, 0)],
+          f"lit frame's K4 instances {configs}")
+    for (args, kw), label in zip(calls[:2], (
+            f"(i) lit bounce 0 {fw}x{fh}, 8 cand, 3 taps",
+            f"(j) lit bounce 1 {fw // 2}x{fh // 2}, 2 cand, 0 taps")):
+        rep.case("shade", label,
+                 lambda a=args, k=kw: RK.fused_shade_cuda(*a, **k),
+                 lambda a=args, k=kw: RK.fused_shade_plain(*a, **k),
+                 bit_exact_shade, shade_work(args, kw))
+    _, _, tris = capture_frame_calls(eng)
+    to, td, tt, tc = tris[0]
+    rep.case("tri", f"lit bounce 0, {tt.shape[0]}-row soup",
+             lambda: triangles.intersect_packed_cuda(to, td, tt, tc),
+             lambda: triangles.intersect_packed_plain(to, td, tt, tc),
+             exact(triangles.TriHit._fields), tri_work(to, tt, tc))
+
+    # delete, then the bulk edit that grows the exception list: bricks in
+    # place of the visible ground, so the frame's rays search the list
+    eng.delete_block(int(x + n[0]), int(y + n[1]), int(z + n[2]))
+    tables_before = eng._tables
+    xyz = surface_bricks(eng)
+    sync()
+    t0 = time.perf_counter()
+    eng.set_blocks(xyz, np.full(len(xyz), B.BRICK, np.uint8))
+    bulk_ms = (time.perf_counter() - t0) * 1e3
+    n_exc = eng._tables.exc_key.shape[0]
+    log(f"set_blocks of {len(xyz)} bricks: {bulk_ms:.3f} ms; exception "
+        f"list {n_exc} entries")
+    check(n_exc >= 512, f"the exception list did not grow: {n_exc}")
+    check(all(torch.equal(getattr(tables_before, f), getattr(eng._tables, f))
+              for f in ("colmask", "df", "maxh")),
+          "the bricks changed the march's tables")
+    K.reset_launch_counts()
+    traces, _, _ = capture_frame_calls(eng)
+    out = eng.render_realtime_device()
+    grown_counts = K.launch_counts()
+    check_frame(out, shape, "frame with the grown exception list")
+    check(grown_counts["trace"] > 0, "K1 not launched on the grown list")
+    tables, tp = eng._tables, eng._tp
+    brick_mi = eng.materials.block_to_mat[B.BRICK]
+    rec0 = dda.trace_cuda(*traces[0][:2], tables, tp)
+    brick_share = float((rec0.hit & (rec0.mi == brick_mi)).float().mean())
+    log(f"    bounce-0 rays whose hit voxel is a brick (the list searched): "
+        f"{brick_share:.4f}")
+    check(brick_share > 0.01, "the frame sees no brick")
+    for i, (o, d, cap, any_hit) in enumerate(traces):
+        fields = ("hit", "t") if any_hit else dda.HitRecord._fields
+        if i == 0:          # timed: the closest-hit wave of bounce 0
+            rep.case("trace", f"grown list ({n_exc}) bounce 0 closest "
+                     f"{fw}x{fh}",
+                     lambda: dda.trace_cuda(o, d, tables, tp, cap, any_hit),
+                     lambda: dda.trace_plain(o, d, tables, tp, cap, any_hit),
+                     exact(fields), trace_work(eng, o, d, cap, any_hit)[:2])
+        else:
+            exact(fields)(dda.trace_cuda(o, d, tables, tp, cap, any_hit),
+                          dda.trace_plain(o, d, tables, tp, cap, any_hit))
+    log(f"    K1 on the grown list: the frame's {len(traces)} calls equal "
+        f"their plain versions to the bit")
+    # the same bounce-0 rays against the tables before the bulk edit (the
+    # same march; there the brick voxels are unmarked): the search's cost
+    o, d, cap, _ = traces[0]
+    k1_rounds = timed_rounds({
+        f"{tables_before.exc_key.shape[0]} entries":
+            lambda: dda.trace_cuda(o, d, tables_before, tp, cap, False),
+        f"{n_exc} entries": lambda: dda.trace_cuda(o, d, tables, tp, cap,
+                                                   False)})
+    for label, ts in k1_rounds.items():
+        log(f"    K1 bounce 0 closest, exception list of {label}: median "
+            f"{statistics.median(ts):.4f} ms of 7 rounds "
+            f"{[round(t, 4) for t in ts]}")
+
+    # the dev panel: an overlay and the four settings the port now runs
+    ov = np.zeros((fh, fw, 4), np.uint8)
+    ov[40:200, 60:700] = (230, 230, 240, 160)
+    eng.set_ui_overlay(ov)
+    eng.apply_settings(eng.settings.replace(**DEV_PANEL))
+    K.reset_launch_counts()
+    dev_times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out = eng.render_realtime_device()
+        sync()
+        dev_times.append((time.perf_counter() - t0) * 1e3)
+        check_frame(out, shape, "dev-panel frame")
+    dev_counts = K.launch_counts()
+    u8 = out.cpu().numpy()
+    check((u8[fh // 2, fw // 2 - 1: fw // 2 + 1] == 255).all(),
+          "no crosshair at the centre")
+    log(f"dev-panel frames (pre_pass, lens_flare, crosshair, preetham, "
+        f"overlay): ms {[round(t, 3) for t in dev_times]}; launches "
+        f"{dev_counts}")
+    return dict(pick=pick, pick_ms=pick_ms, pick_ms_all=picks,
+                warm_join_ms=warm_ms, edit_ms=edit_ms,
+                edit_host_ms=edit_host_ms, soup_rows=(soup0, soup1),
+                frame_ms=lit_ms, frame_ms_all=lit_times,
+                enqueue_ms=lit_enq, launches=counts, in_turns_ms=turns,
+                bulk_edit_ms=bulk_ms, exceptions=n_exc,
+                brick_share=brick_share,
+                k1_list_rounds=k1_rounds,
+                launches_grown=grown_counts, dev_panel_ms=dev_times,
+                launches_dev_panel=dev_counts)
 
 
 def dynres_walk(eng, K, n_frames: int = 30) -> dict:
@@ -1621,6 +1883,19 @@ def main() -> int:
     check(K.launch_counts()["easu"] > easu0, "the 2/3-rung frame vs the "
           "CPU did not launch K7")
 
+    phase("gameplay")
+    # the interactive app's path: its own launch counts, reset just before
+    # its frames and read just after (inside gameplay())
+    play = gameplay(eng, K, rep)
+    log(f"gameplay at {fw}x{fh} on {card}: lit frame median "
+        f"{play['frame_ms']:.3f} ms; edit latency {play['edit_ms']:.3f} ms; "
+        f"pick_block {play['pick_ms']:.3f} ms")
+    phase("gameplay card vs CPU")
+    log("whole frame (lit, highlighted night world), kernels on the card vs "
+        "plain versions on the CPU:")
+    whole["gameplay"] = whole_frame_vs_cpu(gameplay_settings(*VS_CPU),
+                                           setup=night_with_lantern)
+
     # a frame's time of K1, K2, K4 and K6 from the launches the frame
     # makes: K1's and K2's five waves and K6's four steps as captured; K4
     # bounce 0 (case a) and bounces 1-2 (case f, the same instance and
@@ -1672,6 +1947,7 @@ def main() -> int:
                        profile=prof, profile_inline=prof_inline,
                        rungs=rungs, rung_turns_ms=rung_turns,
                        profile_half_rung=prof_half, dynres_walk=walk,
+                       gameplay=play,
                        phase_s=phase_s,
                        kernels=kernels), f, indent=1)
     phase("end")

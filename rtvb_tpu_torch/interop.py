@@ -9,6 +9,8 @@ start both implementations from identical state.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -20,7 +22,7 @@ from .render.postprocess import PostState
 from .render.restir import ReSTIRState
 from .render.sky import SkyState, sky_state_from_numpy
 from .world.lighting import LightTable, light_table_from_numpy
-from .world.voxel import VoxelWorld
+from .world.voxel import VoxelWorld, WorldConfig
 
 
 def _np(a) -> np.ndarray:
@@ -131,16 +133,22 @@ def shade_tables(lf, li, envf, envi, k_slots: int, device="cpu"):
 
 
 def engine_from_jax(jax_engine, engine):
-    """Overwrite the port engine's world, tables, sky, atlas, cameras and
-    feedback states with the JAX engine's (same settings assumed; the
-    internal and output sizes must agree)."""
-    from .ops.dda import trace_tables
+    """Overwrite the port engine's world (with its configuration: a grown
+    exception list), tables, trace parameters, lights and their pending
+    slot remap, sky, atlas, cameras, feedback states, accumulation and UI
+    overlay with the JAX engine's, and rebuild the decoration soup from
+    the carried world (same settings assumed; the internal and output
+    sizes must agree)."""
+    from .ops.dda import TraceParams, trace_tables
     sizes = [(e.width, e.height, e.out_width, e.out_height)
              for e in (jax_engine, engine)]
     if sizes[0] != sizes[1]:
         raise ValueError(f"engine sizes differ (internal w, h, output w, "
                          f"h): JAX {sizes[0]}, port {sizes[1]}")
     dev = engine.device
+    engine.cfg = WorldConfig(**{f.name: getattr(jax_engine.cfg, f.name)
+                                for f in dataclasses.fields(WorldConfig)})
+    engine._tp = TraceParams(*(int(v) for v in jax_engine._tp))
     engine.world = world(jax_engine.world, dev)
     engine.materials = materials(jax_engine.materials, dev)
     engine.lights = lights(jax_engine.lights, dev)
@@ -156,6 +164,11 @@ def engine_from_jax(jax_engine, engine):
                              else denoiser_state(jax_engine.denoiser_state,
                                                  dev))
     engine.post_state = post_state(jax_engine.post_state, dev)
+    engine._light_remap = _t(jax_engine._light_remap, dev, torch.int32)
+    engine._accum = (None if jax_engine._accum is None
+                     else _t(jax_engine._accum, dev, torch.float32))
+    engine._accum_n = int(jax_engine._accum_n)
+    engine._ui_overlay = _t(jax_engine._ui_overlay, dev, torch.uint8)
     engine._tables = trace_tables(engine.world, engine.materials)
     engine._entity_cache = None
     return engine

@@ -1,5 +1,5 @@
-"""Denoiser passes: firefly filter, temporal accumulation, history fix and
-clamp, à-trous wavelet (port of rtvb_tpu/ops/denoise/passes.py).
+"""Denoiser passes: firefly filter, Poisson pre-pass, temporal
+accumulation, history fix and clamp, à-trous wavelet (port of rtvb_tpu/ops/denoise/passes.py).
 
 Images keep the JAX package's (H, W, C) layout.  Fixed-offset stencils
 read edge-clamped neighbours (`shift`); the history fetch is the bilinear
@@ -52,6 +52,29 @@ def firefly_filter(rgb, depth, normal, depth_tol: float = 0.1,
     scale = torch.where(any_ok & (lum > 1e-6),
                         target / torch.clamp(lum, min=1e-6), 1.0)
     return rgb * scale[..., None]
+
+
+# 8-point Poisson-disk offsets (radius 3 px)
+_POISSON_TAPS = ((-3, 0), (3, 1), (0, -3), (-1, 3),
+                 (2, -2), (-2, -2), (2, 2), (-2, 3))
+
+
+def pre_pass(illum, depth, normal, strength: float = 0.5):
+    """Edge-stopping Poisson-disk blur mixed into the input at `strength`
+    (before temporal accumulation: softens 1-spp shot noise)."""
+    acc = illum
+    wsum = torch.ones_like(depth)
+    for dy, dx in _POISSON_TAPS:
+        nd = shift(depth, dy, dx)
+        nn = shift(normal, dy, dx)
+        w = torch.exp(-torch.abs(nd - depth)
+                      / torch.clamp(0.05 * depth, min=0.1))
+        w = w * torch.clamp((nn * normal).sum(-1), min=0.0)
+        w = torch.where((nd >= BIG) | (depth >= BIG), 0.0, w)
+        acc = acc + shift(illum, dy, dx) * w[..., None]
+        wsum = wsum + w
+    blurred = acc / wsum[..., None]
+    return illum + (blurred - illum) * strength
 
 
 def temporal_accumulate(illum, moments_in, motion_u, motion_v, depth, normal,

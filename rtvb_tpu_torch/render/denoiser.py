@@ -1,7 +1,8 @@
 """Denoiser orchestration: the RELAX-style pass chain over G-buffers (port
-of rtvb_tpu/render/denoiser.py).  Pass order: firefly → temporal
-accumulation (bootstrapped on the first frame) → history fix → history
-clamp → à-trous × N (K6) → albedo remodulation."""
+of rtvb_tpu/render/denoiser.py).  Pass order: firefly → Poisson pre-pass
+(off by default) → temporal accumulation (bootstrapped on the first
+frame) → history fix → history clamp → à-trous × N (K6) → albedo
+remodulation."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -47,8 +48,7 @@ def denoise_frame(g, state: DenoiserState, cfg: DenoisingSettings):
     if cfg.firefly_filter:
         illum = passes.firefly_filter(illum, depth, normal)
     if cfg.pre_pass:
-        raise NotImplementedError(
-            "the Poisson pre-pass is still to port (ROADMAP)")
+        illum = passes.pre_pass(illum, depth, normal)
 
     lum = m.luminance(illum[..., 0], illum[..., 1], illum[..., 2])
     moments_in = torch.stack([lum, lum * lum], dim=-1)

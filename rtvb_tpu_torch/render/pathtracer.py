@@ -65,6 +65,9 @@ class GBuffers(NamedTuple):
     motion_u: torch.Tensor
     motion_v: torch.Tensor
     emissive_first: torch.Tensor
+    # picked-block edge mask (H, W) f32 in {0, 1}; None unless
+    # block_highlight was requested
+    highlight: torch.Tensor = None
 
 
 class Reservoir(NamedTuple):
@@ -209,16 +212,57 @@ def _c3(v):
     return tuple(c.contiguous() for c in v)
 
 
+def _picked_face_edges(vrec: HitRecord, p, t_hit, hit_now, cone_spread,
+                       H: int, W: int, max_dist: float = 8.0):
+    """Picked-block edge mask (H, W) f32 in {0, 1}.  The centre pixel's
+    voxel-only primary hit is the pick; the 4 edges of its hit face are
+    tested against every primary hit point by point-to-segment distance,
+    the tolerance widened to ~1.5 px of world footprint.  Voxel (ix, iy,
+    iz) spans the unit cube with corner (ix, iy, iz).  All on the rays'
+    device: no host sync."""
+    cy, cx = H // 2, W // 2
+    pick = vrec.hit[cy, cx] & (vrec.t[cy, cx] < max_dist)
+    bcx = vrec.ix[cy, cx].to(torch.float32) + 0.5
+    bcy = vrec.iy[cy, cx].to(torch.float32) + 0.5
+    bcz = vrec.iz[cy, cx].to(torch.float32) + 0.5
+    nx0, ny0, nz0 = vrec.nx[cy, cx], vrec.ny[cy, cx], vrec.nz[cy, cx]
+    x_face = torch.abs(nx0) > 0.5
+    y_face = torch.abs(ny0) > 0.5
+    zero = torch.zeros_like(nx0)
+    # face-plane tangents: ±x faces → (y, z); ±y → (x, z); ±z → (x, y)
+    t1 = (torch.where(x_face, 0.0, 1.0), torch.where(x_face, 1.0, 0.0), zero)
+    t2 = (zero, torch.where(x_face | y_face, 0.0, 1.0),
+          torch.where(x_face | y_face, 1.0, 0.0))
+    fc = (bcx + 0.5 * nx0, bcy + 0.5 * ny0, bcz + 0.5 * nz0)
+    corners = [tuple(fc[i] + s1 * t1[i] + s2 * t2[i] for i in range(3))
+               for s1, s2 in ((-0.5, -0.5), (0.5, -0.5), (0.5, 0.5),
+                              (-0.5, 0.5))]
+    tol = torch.clamp(t_hit * cone_spread * 1.5, min=0.006)
+    d2_min = torch.full((H, W), BIG, dtype=torch.float32, device=p[0].device)
+    for k in range(4):
+        a, b = corners[k], corners[(k + 1) % 4]
+        ab = (b[0] - a[0], b[1] - a[1], b[2] - a[2])      # unit-length edge
+        pa = (p[0] - a[0], p[1] - a[1], p[2] - a[2])
+        s = torch.clamp(pa[0] * ab[0] + pa[1] * ab[1] + pa[2] * ab[2],
+                        0.0, 1.0)
+        dx = pa[0] - s * ab[0]
+        dy = pa[1] - s * ab[1]
+        dz = pa[2] - s * ab[2]
+        d2_min = torch.minimum(d2_min, dx * dx + dy * dy + dz * dz)
+    mask = hit_now & pick & (d2_min < tol * tol)
+    return mask.to(torch.float32)
+
+
 def render_frame(cfg, tables: TraceTables, tp: TraceParams, mats,
                  lights: LightTable, sky, cam: Camera, hist_cam: Camera,
                  frame_idx: int, width: int, height: int,
                  rs_cfg: RenderingSettings, prev_restir=None,
                  light_remap=None, entities: EntityBuffers | None = None,
-                 atlas=None, half_res_gi: bool = False):
-    """One 1-spp path-traced frame → (GBuffers, new ReSTIRState | None)."""
-    if rs_cfg.block_highlight:
-        raise NotImplementedError(
-            "the picked-block highlight is still to port (ROADMAP)")
+                 atlas=None, half_res_gi: bool = False,
+                 block_highlight: bool = False):
+    """One 1-spp path-traced frame → (GBuffers, new ReSTIRState | None).
+    block_highlight adds the picked block's edge mask (GBuffers.highlight)
+    from the centre pixel's voxel-only primary hit."""
     use_restir = prev_restir is not None
     H, W = height, width
     dev = cam.pos_x.device
@@ -270,6 +314,7 @@ def render_frame(cfg, tables: TraceTables, tp: TraceParams, mats,
     g_depth = torch.full((H, W), BIG, **f32)
     g_rough = torch.ones((H, W), **f32)
     g_emissive = torch.zeros((H, W), dtype=torch.bool, device=dev)
+    g_highlight = None
 
     sun_cos_max = sky.cos_sun_radius
     pdf_sun_cone = 1.0 / torch.clamp(2.0 * math.pi * (1.0 - sun_cos_max),
@@ -297,6 +342,7 @@ def render_frame(cfg, tables: TraceTables, tp: TraceParams, mats,
             o, d = neutralize(o, d, alive)
         rec: HitRecord = trace_radiance(o, d)
         rec_hit, rec_t = rec.hit, rec.t
+        # rec stays the voxel-only record: the pick ignores entities
 
         test_ent = entities is not None and (bounce == 0
                                              or rs_cfg.entity_in_bounces)
@@ -339,6 +385,9 @@ def render_frame(cfg, tables: TraceTables, tp: TraceParams, mats,
             n = m.where3(is_ent, ent_n, n)
         p = m.add(o, m.scale(d, rec_t))
         wo = m.neg(d)
+        if bounce == 0 and block_highlight:
+            g_highlight = _picked_face_edges(rec, p, rec_t, rec_hit, spread,
+                                             H, W)
 
         mi = rec.mi
         if test_ent:
@@ -638,5 +687,6 @@ def render_frame(cfg, tables: TraceTables, tp: TraceParams, mats,
                  albedo=tuple(g_albedo), normal=tuple(g_normal),
                  depth=g_depth, roughness=g_rough, motion_u=g_motion_u,
                  motion_v=g_motion_v,
-                 emissive_first=g_emissive | (g_depth >= BIG))
+                 emissive_first=g_emissive | (g_depth >= BIG),
+                 highlight=g_highlight)
     return g, (new_restir if use_restir else None)

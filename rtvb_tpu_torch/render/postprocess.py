@@ -1,6 +1,6 @@
-"""Post-processing: auto-exposure → bloom → vignette → tone map →
-upscale (EASU, K7, below render_scale 1) → RCAS sharpen → overlay (port of
-rtvb_tpu/render/postprocess.py)."""
+"""Post-processing: auto-exposure → bloom → lens flare → vignette → tone
+map → block highlight → upscale (EASU, K7, below render_scale 1) → RCAS
+sharpen → crosshair → overlay (port of rtvb_tpu/render/postprocess.py)."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -82,6 +82,46 @@ def bloom(rgb, cfg: PostProcessingSettings):
         cols = torch.clamp(torch.arange(w, device=rgb.device), max=w4 * 4 - 1)
         up = up.index_select(0, rows).index_select(1, cols)
     return rgb + cfg.bloom_intensity * up
+
+
+def lens_flare(rgb, cfg: PostProcessingSettings):
+    """Ghosts + chromatic halo: a centre-mirrored ghost, a half-scale and
+    a quarter-scale mirrored ghost pasted at fixed offsets, and a ring per
+    channel driven by the frame's mean flare energy."""
+    lum = m.luminance(rgb[..., 0], rgb[..., 1], rgb[..., 2])
+    k = torch.clamp(lum - cfg.bloom_threshold * 2.0, min=0.0)
+    bright = rgb * k[..., None]
+    h, w = rgb.shape[:2]
+    dev = rgb.device
+
+    def tint(r, g, b):
+        return torch.tensor([r, g, b], dtype=rgb.dtype, device=dev)
+    # ghost 1: full-size centre mirror, cool
+    ghost1 = torch.flip(bright, (0, 1)) * tint(0.35, 0.55, 0.9)
+    # ghost 2: half-scale, centre-offset, warm
+    g2 = bright[::2, ::2] * tint(0.9, 0.6, 0.3)
+    ghost2 = torch.zeros_like(rgb)
+    ghost2[h // 4: h // 4 + g2.shape[0], w // 4: w // 4 + g2.shape[1]] = g2
+    # ghost 3: quarter-scale mirrored (rows h-1, h-5, ...), magenta
+    g3 = torch.flip(bright, (0, 1))[::4, ::4] * tint(0.8, 0.3, 0.8)
+    ghost3 = torch.zeros_like(rgb)
+    o3y, o3x = (3 * h) // 8, (3 * w) // 8
+    ghost3[o3y: o3y + g3.shape[0], o3x: o3x + g3.shape[1]] = g3
+
+    # chromatic halo: a ring per channel (radius shifted for dispersion)
+    # weighted by the frame's mean flare energy
+    yy = ((torch.arange(h, device=dev) + 0.5) / h - 0.5)[:, None] * 2.0
+    xx = ((torch.arange(w, device=dev) + 0.5) / w - 0.5)[None, :] * 2.0
+    r = m.sqrt(yy * yy + xx * xx)
+    energy = torch.mean(bright, dim=(0, 1))
+    halo = torch.stack([
+        energy[0] * torch.exp(-torch.square((r - 0.42) / 0.05)),
+        energy[1] * torch.exp(-torch.square((r - 0.46) / 0.05)),
+        energy[2] * torch.exp(-torch.square((r - 0.50) / 0.05)),
+    ], dim=-1) * 12.0
+
+    return rgb + cfg.lens_flare_intensity * (
+        0.5 * ghost1 + 0.3 * ghost2 + 0.25 * ghost3 + 0.8 * halo)
 
 
 def vignette(rgb, cfg: PostProcessingSettings):
@@ -186,6 +226,17 @@ def sharpen(img, strength: float):
                        0.0, 1.0)
 
 
+def draw_crosshair(img):
+    """A white 13-pixel cross, 2 pixels wide, at the image centre (a new
+    tensor; the input is not written)."""
+    h, w = img.shape[:2]
+    cy, cx = h // 2, w // 2
+    img = img.clone()
+    img[cy - 6: cy + 7, cx - 1: cx + 1] = 1.0
+    img[cy - 1: cy + 1, cx - 6: cx + 7] = 1.0
+    return img
+
+
 def compose_overlay(rgb, overlay_u8):
     ov = overlay_u8.to(torch.float32) * (1.0 / 255.0)
     a = ov[..., 3:4]
@@ -194,24 +245,31 @@ def compose_overlay(rgb, overlay_u8):
 
 def run(rgb_linear, state: PostState, pp: PostProcessingSettings,
         tm: ToneMappingSettings, dt: float, out_h: int, out_w: int,
-        overlay_u8=None):
-    """(H, W, 3) linear HDR → (out_h, out_w, 3) display sRGB in [0, 1]."""
-    if pp.lens_flare:
-        raise NotImplementedError("lens flare is still to port (ROADMAP)")
-    if pp.crosshair:
-        raise NotImplementedError("the crosshair is still to port (ROADMAP)")
+        overlay_u8=None, highlight=None):
+    """(H, W, 3) linear HDR → (out_h, out_w, 3) display sRGB in [0, 1].
+    overlay_u8: optional (out_h, out_w, 4) u8 UI overlay (RGBA).
+    highlight: optional (H, W) f32 mask of picked-block edge pixels,
+    forced white after tone mapping at the internal size, so the upscale
+    carries it to the output."""
     exp = auto_exposure(rgb_linear, state, pp, dt) if pp.auto_exposure \
         else state.exposure
     x = rgb_linear
     if pp.bloom:
         x = bloom(x, pp)
+    if pp.lens_flare:
+        x = lens_flare(x, pp)
     if pp.vignette:
         x = vignette(x, pp)
     y = tone_map(x, tm, exp)
+    if highlight is not None:
+        hl = highlight[..., None]
+        y = y * (1.0 - hl) + hl
     if pp.upscale != "none":
         y = upscale(y, out_h, out_w, pp.upscale)
     if pp.sharpen:
         y = sharpen(y, pp.sharpen_strength)
+    if pp.crosshair:
+        y = draw_crosshair(y)
     if overlay_u8 is not None:
         y = compose_overlay(y, overlay_u8)
     return y, PostState(exposure=exp)

@@ -1,20 +1,31 @@
-"""Engine: owns world + assets + camera and runs the real-time frame
-(port of rtvb_tpu/render/renderer.py).
+"""Engine: owns world + assets + camera, runs the real-time frame and
+takes the interactive app's calls (port of rtvb_tpu/render/renderer.py).
 
 The frame is the JAX package's `_build_run`: path trace → denoise → post →
-u8, with the three feedback states (ReSTIR reservoirs, denoiser history,
-adapted exposure) held as tensors on the engine's device and rebound every
-frame.  `Engine()` runs the shipped `Settings()`: fused shading (the K4
-kernel) at native resolution.  `slice_settings()` is the same with the
-in-line shading composition (fused_shading False).  Below render_scale 1
-(the dynamic-resolution rungs 3/4, 2/3, 1/2) the frame path traces and
+u8, a function of explicit arguments (`_build_run`), with the three
+feedback states (ReSTIR reservoirs, denoiser history, adapted exposure)
+held as tensors on the engine's device and rebound every frame.
+`Engine()` runs the shipped `Settings()`: fused shading (the K4 kernel)
+at native resolution.  `slice_settings()` is the same with the in-line
+shading composition (fused_shading False).  Below render_scale 1 (the
+dynamic-resolution rungs 3/4, 2/3, 1/2) the frame path traces and
 denoises at the internal size and post upscales to the output size with
 EASU (the K7 kernel).
+
+The gameplay calls: world edits (`set_block`, `set_blocks`,
+`delete_block`: host table rebuilds, a light-slot remap consumed by the
+next frame, the decoration soup rebuilt), `pick_block` (one camera-centre
+ray through K1), `apply_settings` / `set_sky` / `set_ui_overlay`, the
+offline accumulation (`path_trace`, `render_accumulated`,
+`reset_accumulation`) and `warm_light_variant_async`.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
+import threading
+import traceback
+import warnings
 
 import numpy as np
 import torch
@@ -29,12 +40,13 @@ from ..assets.decorations import DecorationMeshes
 from ..assets.materials import MaterialRegistry
 from ..assets.textures import TEXTURE_IDS
 from ..core.camera import make_camera
-from ..ops.dda import trace_params, trace_tables
-from ..world import gen, lighting
+from ..ops.dda import trace, trace_params, trace_tables
+from ..world import gen, lighting, voxel
 from . import pathtracer, postprocess
 from . import restir as restir_mod
 from . import sky as sky_mod
 from .denoiser import denoise_frame, initial_denoiser_state
+from .postprocess import PostState
 
 _DATA = os.path.join(os.path.dirname(__file__), "..", "..", "data")
 
@@ -124,11 +136,16 @@ class Engine:
 
         self.frame_index = 0
         self.post_state = postprocess.initial_post_state(self.device)
+        # UI overlay (out_h, out_w, 4) u8 RGBA; zeros = invisible
+        self._ui_overlay = torch.zeros(
+            (self.out_height, self.out_width, 4), dtype=torch.uint8,
+            device=self.device)
         self.denoiser_state = None
         self.restir_state = None
-        self._light_remap = torch.arange(self.lights.key.shape[0],
-                                         dtype=torch.int32,
-                                         device=self.device)
+        self._identity_remaps: dict[int, torch.Tensor] = {}
+        self._light_remap = self._identity_remap()
+        self._accum = None
+        self._accum_n = 0
         self._tp = trace_params(self.cfg, rs.max_trace_steps)
         self._tables = trace_tables(self.world, self.materials)
         self._entity_cache = None
@@ -151,7 +168,7 @@ class Engine:
     def set_render_scale(self, scale: float):
         """Switch the internal render size (a dynamic-resolution rung).  A
         size change resets the per-resolution states (ReSTIR reservoirs,
-        denoiser history)."""
+        denoiser history, accumulation); the same size returns early."""
         w, h = self._internal_size(scale)
         self.render_scale = scale
         if (w, h) == (self.width, self.height):
@@ -159,6 +176,59 @@ class Engine:
         self.width, self.height = w, h
         self.restir_state = None
         self.denoiser_state = None
+        self._accum = None
+        self._accum_n = 0
+
+    def apply_settings(self, settings: Settings) -> None:
+        """Live settings swap (the dev panel's edit path).  Temporal state
+        resets where its estimator changed: ReSTIR on a rendering edit,
+        the denoiser history on a denoising edit; a sky edit goes through
+        set_sky; an output-size edit re-derives the internal size.  As in
+        the JAX package, the trace parameters (max_trace_steps) are not
+        rebuilt."""
+        old = self.settings
+        if settings == old:
+            return
+        self.settings = settings
+        if settings.sky != old.sky:
+            self.set_sky(**{f.name: getattr(settings.sky, f.name)
+                            for f in dataclasses.fields(settings.sky)
+                            if getattr(settings.sky, f.name)
+                            != getattr(old.sky, f.name)})
+        if settings.rendering != old.rendering:
+            self.restir_state = None
+        if settings.denoising != old.denoising:
+            self.denoiser_state = None
+        if (settings.rendering.render_width != old.rendering.render_width
+                or settings.rendering.render_height
+                != old.rendering.render_height):
+            self.out_width = settings.rendering.render_width
+            self.out_height = settings.rendering.render_height
+            self.set_render_scale(self.render_scale)
+
+    def set_sky(self, **sky_updates) -> None:
+        """Change sky parameters (time_of_day, turbidity, model, ...) and
+        rebuild the sky state.  Also resets the ReSTIR reservoirs: they
+        cache their sample's radiance, which a sun change makes stale."""
+        self.settings = self.settings.replace(sky=sky_updates)
+        self.sky_state = sky_mod.make_sky_state(self.settings.sky,
+                                                device=self.device)
+        if self.restir_state is not None:
+            self.restir_state = restir_mod.initial_state(
+                self.height, self.width, device=self.device)
+
+    def set_ui_overlay(self, rgba_u8) -> None:
+        """Upload a host-rastered (out_h, out_w, 4) u8 RGBA overlay that
+        every frame composites over its output; None clears it."""
+        if rgba_u8 is None:
+            rgba_u8 = np.zeros((self.out_height, self.out_width, 4),
+                               np.uint8)
+        shape = (self.out_height, self.out_width, 4)
+        if tuple(rgba_u8.shape) != shape:
+            raise ValueError(f"overlay shape {tuple(rgba_u8.shape)}, "
+                             f"expected {shape}")
+        self._ui_overlay = torch.as_tensor(np.asarray(rgba_u8, np.uint8),
+                                           device=self.device)
 
     def _nonsolid_ids(self):
         return tuple(b.id for b in self.block_registry.blocks if b.instanced)
@@ -177,6 +247,80 @@ class Engine:
                                          float(cam.pos_z)),
             yaw if yaw is not None else float(cam.yaw),
             pitch if pitch is not None else float(cam.pitch))
+
+    # ------------------------------------------------------------------
+    # world edits and the pick
+    # ------------------------------------------------------------------
+
+    def set_block(self, x: int, y: int, z: int, block_id: int):
+        """Place (or, with id 0, remove) one block; returns the light-slot
+        remap (previous slot → current, -1 where gone)."""
+        self.world = voxel.set_block(self.cfg, self.world, x, y, z, block_id,
+                                     self._nonsolid_ids())
+        return self._after_edit()
+
+    def set_blocks(self, xyz, ids):
+        """Bulk edit: N placements / removals, one table + light rebuild."""
+        self.world = voxel.set_blocks(self.cfg, self.world, xyz, ids,
+                                      self._nonsolid_ids())
+        return self._after_edit()
+
+    def delete_block(self, x: int, y: int, z: int):
+        return self.set_block(x, y, z, 0)
+
+    def _identity_remap(self) -> torch.Tensor:
+        """The identity light remap for the table's size, cached."""
+        n = self.lights.key.shape[0]
+        r = self._identity_remaps.get(n)
+        if r is None:
+            r = torch.arange(n, dtype=torch.int32, device=self.device)
+            self._identity_remaps[n] = r
+        return r
+
+    def _after_edit(self):
+        """Grow the exception list to the next power of two if the edit
+        overflowed it, rebuild the light table, keep the slot remap for
+        the next frame, and rebuild the trace tables and (at the next
+        frame) the decoration soup.  The host reads the tables here, never
+        in the frame."""
+        n_exc = voxel.exception_count(self.cfg, self.world)
+        if n_exc > self.cfg.max_exceptions:
+            cap = self.cfg.max_exceptions
+            while cap < n_exc:
+                cap *= 2
+            self.cfg = dataclasses.replace(self.cfg, max_exceptions=cap)
+            self.world = voxel.build_tables(
+                self.cfg, self.world.blocks, self.world.schema,
+                self._nonsolid_ids(), device=self.device)
+        prev_lights = self.lights
+        self.lights = lighting.build_light_table(
+            self.cfg, self.world, self.materials, self.block_registry,
+            self.decor, device=self.device)
+        remap = lighting.light_id_remap(prev_lights, self.lights)
+        self._light_remap = remap     # consumed by the next frame
+        self._tp = trace_params(self.cfg, self._tp.max_steps)
+        self._tables = trace_tables(self.world, self.materials)
+        self._entity_cache = None
+        return remap
+
+    def pick_block(self, max_dist: float = 8.0):
+        """Camera-centre voxel pick: one ray through the trace (K1 on the
+        card), capped at max_dist.  Returns (hit, (x, y, z), (nx, ny,
+        nz))."""
+        cam = self.camera
+        half = torch.tensor(0.5, dtype=torch.float32, device=self.device)
+        d = cam.uv_to_dir(half, half)
+        o = tuple(v.reshape(1) for v in cam.pos)
+        d = tuple(v.reshape(1) for v in d)
+        rec = trace(o, d, self._tables, self._tp,
+                    t_cap=torch.full((1,), max_dist, dtype=torch.float32,
+                                     device=self.device))
+        vals = torch.stack([rec.hit.to(torch.float32), *(
+            c.to(torch.float32) for c in (rec.ix, rec.iy, rec.iz, rec.nx,
+                                          rec.ny, rec.nz))]).cpu()
+        hit, ix, iy, iz, nx, ny, nz = vals[:, 0].tolist()
+        return (bool(hit), (int(ix), int(iy), int(iz)),
+                (float(nx), float(ny), float(nz)))
 
     # ------------------------------------------------------------------
     # decoration triangle soup
@@ -223,8 +367,8 @@ class Engine:
 
     def entity_buffers(self):
         """EntityBuffers of the decorations (padded to a pow2 ≥ 16), or
-        None when the world holds none.  Built once: this slice has no
-        edits and no live entities."""
+        None when the world holds none.  Cached until an edit (there are
+        no live entities yet)."""
         if self._entity_cache is not None:
             return self._entity_cache[0]
         dv0, dv1, dv2, dmat, dslot = self._decoration_triangles()
@@ -271,38 +415,87 @@ class Engine:
             self.denoiser_state = initial_denoiser_state(
                 self.height, self.width, device=self.device)
 
-    def render_gbuffers(self):
-        """Path trace one frame from the current states → (GBuffers, new
-        ReSTIR state); advances nothing."""
+    def _trace_fn(self, n_local: int, half_res_gi: bool,
+                  block_highlight: bool):
+        """render_frame with the engine's static configuration bound now
+        (sizes, world shape, settings): trace(tables, mats, lights, sky,
+        cam, hist_cam, frame_idx, prev_restir, light_remap, ent, atlas) →
+        (GBuffers, new ReSTIR state | None)."""
         rs_cfg = dataclasses.replace(self.settings.rendering,
-                                     local_light_candidates=self._n_local)
-        use_restir = rs_cfg.use_restir
-        return pathtracer.render_frame(
-            self.cfg, self._tables, self._tp, self.materials, self.lights,
-            self.sky_state, self.camera, self.history_camera,
-            self.frame_index, self.width, self.height, rs_cfg,
-            prev_restir=self.restir_state if use_restir else None,
-            light_remap=self._light_remap, entities=self.entity_buffers(),
-            atlas=self.texture_atlas, half_res_gi=rs_cfg.half_res_gi)
+                                     local_light_candidates=n_local)
+        cfg, tp, W, H = self.cfg, self._tp, self.width, self.height
+
+        def run(tables, mats, lights, sky_state, cam, hist_cam, frame_idx,
+                prev_restir, light_remap, ent, atlas):
+            return pathtracer.render_frame(
+                cfg, tables, tp, mats, lights, sky_state, cam, hist_cam,
+                frame_idx, W, H, rs_cfg,
+                prev_restir=prev_restir if rs_cfg.use_restir else None,
+                light_remap=light_remap, entities=ent, atlas=atlas,
+                half_res_gi=half_res_gi, block_highlight=block_highlight)
+        return run
+
+    def _build_run(self, n_local_override: int | None = None):
+        """The whole frame (path trace → denoise → post → u8) as a
+        function of explicit arguments, the engine's static configuration
+        bound now: run(tables, mats, lights, sky, cam, hist_cam,
+        frame_idx, prev_restir, light_remap, dstate, post_state, dt, ent,
+        atlas, overlay) → (u8, new_restir, new_dstate, new_post_state).
+        The stages are profiler ranges (STAGES); outside a profiler they
+        cost a few µs."""
+        n_local = self._n_local if n_local_override is None \
+            else n_local_override
+        rs = self.settings.rendering
+        trace_fn = self._trace_fn(n_local, rs.half_res_gi, rs.block_highlight)
+        dn_cfg = self.settings.denoising
+        pp = self.settings.post_processing
+        tm = self.settings.tone_mapping
+        out_h, out_w = self.out_height, self.out_width
+
+        def run(tables, mats, lights, sky_state, cam, hist_cam, frame_idx,
+                prev_restir, light_remap, dstate, post_state, dt, ent,
+                atlas=None, overlay=None):
+            with record_function("rtvb.pathtrace"):
+                g, new_restir = trace_fn(tables, mats, lights, sky_state,
+                                         cam, hist_cam, frame_idx,
+                                         prev_restir, light_remap, ent,
+                                         atlas)
+            with record_function("rtvb.denoise"):
+                rgb, new_dstate = denoise_frame(g, dstate, dn_cfg)
+            with record_function("rtvb.post"):
+                out, new_pstate = postprocess.run(
+                    rgb, post_state, pp, tm, dt, out_h, out_w,
+                    overlay_u8=overlay, highlight=g.highlight)
+                out_u8 = (torch.clamp(out, 0.0, 1.0) * 255.0 + 0.5).to(
+                    torch.uint8)
+            return out_u8, new_restir, new_dstate, new_pstate
+        return run
+
+    def _trace_inputs(self):
+        return (self._tables, self.materials, self.lights, self.sky_state,
+                self.camera, self.history_camera, self.frame_index,
+                self.restir_state, self._light_remap)
+
+    def render_gbuffers(self):
+        """Path trace one frame of the real-time path from the current
+        states → (GBuffers, new ReSTIR state); advances nothing."""
+        rs = self.settings.rendering
+        return self._trace_fn(self._n_local, rs.half_res_gi,
+                              rs.block_highlight)(
+            *self._trace_inputs(), self.entity_buffers(), self.texture_atlas)
 
     def render_realtime_device(self, dt: float = 1.0 / 60.0) -> torch.Tensor:
-        """One interactive frame: 1 spp + denoiser + post.  Returns the
-        (out_h, out_w, 3) u8 frame on the engine's device.  The stages are
-        profiler ranges (STAGES); outside a profiler they cost a few µs."""
+        """One interactive frame: 1 spp + denoiser + post, with the UI
+        overlay.  Returns the (out_h, out_w, 3) u8 frame on the engine's
+        device; consumes the light remap of an edit."""
         self._ensure_states()
-        with record_function("rtvb.pathtrace"):
-            g, new_restir = self.render_gbuffers()
-        with record_function("rtvb.denoise"):
-            rgb, self.denoiser_state = denoise_frame(g, self.denoiser_state,
-                                                     self.settings.denoising)
-        with record_function("rtvb.post"):
-            out, self.post_state = postprocess.run(
-                rgb, self.post_state, self.settings.post_processing,
-                self.settings.tone_mapping, dt, self.out_height,
-                self.out_width)
-            out_u8 = (torch.clamp(out, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+        out_u8, new_restir, self.denoiser_state, self.post_state = \
+            self._build_run()(*self._trace_inputs(), self.denoiser_state,
+                              self.post_state, dt, self.entity_buffers(),
+                              self.texture_atlas, self._ui_overlay)
         if new_restir is not None:
             self.restir_state = new_restir
+        self._light_remap = self._identity_remap()
         self.frame_index += 1
         self.history_camera = self.camera
         return out_u8
@@ -310,3 +503,87 @@ class Engine:
     def render_realtime(self, dt: float = 1.0 / 60.0) -> np.ndarray:
         """Like render_realtime_device, fetched to a host numpy array."""
         return self.render_realtime_device(dt).cpu().numpy()
+
+    def warm_light_variant_async(self):
+        """Run one throwaway frame of the lights-on variant (the
+        configured local-light candidates in place of 0) in a background
+        thread, on its own CUDA stream with throwaway feedback states, so
+        that the first lit frame finds K4's lit instances loaded (CUDA
+        loads a kernel's module at its first launch).  Returns the
+        Thread, or None when the variant is already live or the engine
+        has not rendered yet.  The live states are not touched."""
+        n_local = self.settings.rendering.local_light_candidates
+        if self._n_local == n_local or self.restir_state is None \
+                or self.denoiser_state is None:
+            return None
+        run = self._build_run(n_local_override=n_local)
+        args = (*self._trace_inputs()[:7],
+                restir_mod.initial_state(self.height, self.width,
+                                         device=self.device),
+                self._light_remap,
+                initial_denoiser_state(self.height, self.width,
+                                       device=self.device),
+                PostState(exposure=self.post_state.exposure.clone()),
+                1.0 / 60.0, self.entity_buffers(), self.texture_atlas,
+                self._ui_overlay)
+        stream = None
+        if self.device.type == "cuda":
+            stream = torch.cuda.Stream(self.device)
+            # the side stream starts after everything queued so far
+            stream.wait_stream(torch.cuda.current_stream(self.device))
+
+        def work():
+            try:
+                with torch.cuda.stream(stream):     # None: no-op (CPU)
+                    run(*args)
+                if stream is not None:
+                    stream.synchronize()
+            except Exception:     # best effort: the live frame is unharmed
+                warnings.warn("light-variant warm-up failed:\n"
+                              + traceback.format_exc())
+
+        t = threading.Thread(target=work, daemon=True,
+                             name="rtvb-light-variant-warmup")
+        t.start()
+        return t
+
+    # ------------------------------------------------------------------
+    # offline accumulation
+    # ------------------------------------------------------------------
+
+    def path_trace(self) -> pathtracer.GBuffers:
+        """One path-traced frame that advances the reservoirs and the frame
+        index, as the JAX package's path_trace: full-resolution GI and no
+        highlight whatever the settings say, and the history camera kept."""
+        if self.settings.rendering.use_restir and self.restir_state is None:
+            self.restir_state = restir_mod.initial_state(
+                self.height, self.width, device=self.device)
+        g, new_restir = self._trace_fn(self._n_local, False, False)(
+            *self._trace_inputs(), self.entity_buffers(), self.texture_atlas)
+        if new_restir is not None:
+            self.restir_state = new_restir
+        self._light_remap = self._identity_remap()
+        self.frame_index += 1
+        return g
+
+    def render_accumulated(self, dt: float = 1.0 / 60.0) -> np.ndarray:
+        """Offline path: the running mean of path_trace's radiance over the
+        calls since the last reset (no denoiser), post-processed (no
+        overlay) → (out_h, out_w, 3) f32 display values on the host."""
+        g = self.path_trace()
+        rgb = torch.stack([g.illum[i] * g.albedo[i] for i in range(3)], -1)
+        if self._accum is None:
+            self._accum = rgb
+            self._accum_n = 1
+        else:
+            self._accum_n += 1
+            self._accum = self._accum + (rgb - self._accum) / self._accum_n
+        st = self.settings
+        out, self.post_state = postprocess.run(
+            self._accum, self.post_state, st.post_processing, st.tone_mapping,
+            dt, self.out_height, self.out_width)
+        return out.cpu().numpy()
+
+    def reset_accumulation(self):
+        self._accum = None
+        self._accum_n = 0

@@ -61,17 +61,104 @@ def sun_direction(time_of_day: float, axis_angle_deg: float):
     return m.normalize((c, s * torch.cos(a), s * torch.sin(a)))
 
 
+def _preetham_rgb_np(dirs: np.ndarray, sun: np.ndarray, T: float
+                     ) -> np.ndarray:
+    """Preetham et al. 1999 analytic sky in numpy (the fit target of
+    SkySettings.model "preetham"): zenith chromaticity polynomials + the
+    Perez luminance distribution, kcd/m² × SKY_RADIANCE_SCALE."""
+    cos_ts = float(np.clip(sun[1], 0.02, 1.0))
+    ts = float(np.arccos(cos_ts))
+    t2, t3 = ts * ts, ts ** 3
+    xz = ((0.00166 * t3 - 0.00375 * t2 + 0.00209 * ts) * T * T
+          + (-0.02903 * t3 + 0.06377 * t2 - 0.03202 * ts + 0.00394) * T
+          + (0.11693 * t3 - 0.21196 * t2 + 0.06052 * ts + 0.25886))
+    yz = ((0.00275 * t3 - 0.00610 * t2 + 0.00317 * ts) * T * T
+          + (-0.04214 * t3 + 0.08970 * t2 - 0.04153 * ts + 0.00516) * T
+          + (0.15346 * t3 - 0.26756 * t2 + 0.06670 * ts + 0.26688))
+    chi = (4.0 / 9.0 - T / 120.0) * (np.pi - 2.0 * ts)
+    Yz = (4.0453 * T - 4.9710) * np.tan(chi) - 0.2155 * T + 2.4192
+
+    coefs = {
+        "Y": (0.1787 * T - 1.4630, -0.3554 * T + 0.4275, -0.0227 * T + 5.3251,
+              0.1206 * T - 2.5771, -0.0670 * T + 0.3703),
+        "x": (-0.0193 * T - 0.2592, -0.0665 * T + 0.0008, -0.0004 * T + 0.2125,
+              -0.0641 * T - 0.8989, -0.0033 * T + 0.0452),
+        "y": (-0.0167 * T - 0.2608, -0.0950 * T + 0.0092, -0.0079 * T + 0.2102,
+              -0.0441 * T - 1.6537, -0.0109 * T + 0.0529),
+    }
+
+    cos_t = np.clip(dirs[:, 1], 0.01, 1.0)
+    cos_g = np.clip(dirs @ sun, -1.0, 1.0)
+    gamma = np.arccos(cos_g)
+
+    def perez(ct, g, cg, A, B, C, D, E):
+        return (1.0 + A * np.exp(B / ct)) * (1.0 + C * np.exp(D * g)
+                                             + E * cg * cg)
+
+    def ratio(key):
+        A, B, C, D, E = coefs[key]
+        den = max(perez(1.0, ts, cos_ts, A, B, C, D, E), 1e-6)
+        return perez(cos_t, gamma, cos_g, A, B, C, D, E) / den
+
+    Y = Yz * ratio("Y")
+    x = xz * ratio("x")
+    y = yz * ratio("y")
+    Yy = Y / np.maximum(y, 1e-5)
+    X = x * Yy
+    Z = (1.0 - x - y) * Yy
+    rgb = np.stack([3.2406 * X - 1.5372 * Y - 0.4986 * Z,
+                    -0.9689 * X + 1.8758 * Y + 0.0415 * Z,
+                    0.0557 * X - 0.2040 * Y + 1.0570 * Z], -1)
+    return np.maximum(rgb, 0.0) * SKY_RADIANCE_SCALE
+
+
+def _fit_preetham_basis(sun_np: np.ndarray, T: float):
+    """Least-squares fit of the 12-function basis to the Preetham model
+    (float64 numpy): (params (4,) f32, M (12, 3) f32) in engine units."""
+    n = 4096
+    i = np.arange(n, dtype=np.float64) + 0.5
+    cos_t = 1.0 - i / n
+    phi = i * (np.pi * (3.0 - np.sqrt(5.0)))
+    sin_t = np.sqrt(np.maximum(0.0, 1.0 - cos_t ** 2))
+    dirs = np.stack([sin_t * np.cos(phi), cos_t, sin_t * np.sin(phi)], -1)
+    target = _preetham_rgb_np(dirs, sun_np, float(T)) / SKY_RADIANCE_SCALE
+    # representative nonlinear constants from the Perez Y row
+    B = float(-0.3554 * T + 0.4275)
+    D = float(0.1206 * T - 2.5771)
+    params = np.array([B, D, D * 0.35, 0.6], np.float64)
+    cos_g = np.clip(dirs @ sun_np, -1.0, 1.0)
+    gamma = np.arccos(cos_g)
+    F = np.stack(ss._features(np.clip(dirs[:, 1], 0.0, 1.0), cos_g, gamma,
+                              *params, xp=np), -1)
+    wgt = 1.0 / np.maximum(np.linalg.norm(target, axis=-1, keepdims=True),
+                           1e-3)
+    M, *_ = np.linalg.lstsq(F * wgt, target * wgt, rcond=None)
+    return (params.astype(np.float32),
+            (M * SKY_RADIANCE_SCALE).astype(np.float32))
+
+
 def _fit_sky_basis(s: SkySettings, sun_np: np.ndarray):
+    """(basis_p, basis_m, sun_poly) in engine units for the configured
+    model: "hosek" (the spectral fit) or "preetham"."""
     fade = float(np.clip((sun_np[1] + 0.1) * 8.0, 0.0, 1.0))
     vis = float(np.clip((sun_np[1] + 0.05) * 12.0, 0.0, 1.0))
-    if getattr(s, "model", "hosek") != "hosek":
-        raise NotImplementedError(
-            "the port fits the Hosek–Wilkie sky only; the 'preetham' target "
-            "is still to port (ROADMAP)")
-    params, M = ss.fit_basis(sun_np)
-    M = M * (SPECTRAL_SCALE * s.sky_intensity * fade)
-    poly = ss.sun_rgb_poly(float(sun_np[1]), s.sun_angular_diameter)
-    poly = poly * (SPECTRAL_SCALE * s.sun_intensity * vis)
+    if getattr(s, "model", "hosek") == "hosek":
+        params, M = ss.fit_basis(sun_np)
+        M = M * (SPECTRAL_SCALE * s.sky_intensity * fade)
+        poly = ss.sun_rgb_poly(float(sun_np[1]), s.sun_angular_diameter)
+        poly = poly * (SPECTRAL_SCALE * s.sun_intensity * vis)
+    else:
+        # the Preetham target through the same basis (one per-pixel path)
+        params, M = _fit_preetham_basis(sun_np, s.turbidity)
+        M = M * (s.sky_intensity * fade)
+        # warm sun with limb = 0.4 + 0.6·s exactly (a degree-1 polynomial)
+        elev = float(np.clip(sun_np[1], 0.0, 1.0))
+        warm = np.array([1.0, 0.75 + 0.23 * np.sqrt(elev),
+                         0.52 + 0.44 * np.sqrt(elev)])
+        base = SUN_RADIANCE_SCALE * s.sun_intensity * vis
+        poly = np.zeros((6, 3))
+        poly[0] = 0.4 * base * warm
+        poly[1] = 0.6 * base * warm
     return (np.asarray(params, np.float32), np.asarray(M, np.float32),
             np.asarray(poly, np.float32))
 

@@ -164,6 +164,22 @@ def light_slot_of(lights: LightTable, voxel_key: int, ordinal: int) -> int:
     return int(hits[0]) if len(hits) else -1
 
 
+def light_id_remap(prev_lights: LightTable, lights: LightTable
+                   ) -> torch.Tensor:
+    """(K_prev,) int32 on the new table's device: previous light slot →
+    current slot (-1 where the light is gone), matched by identity key;
+    feeds the ReSTIR reservoirs' slot remap across an edit."""
+    prev_key = prev_lights.key.cpu().numpy()
+    cur_key = lights.key.cpu().numpy()
+    cur_pos = {int(kk): i for i, kk in enumerate(cur_key)
+               if kk < LIGHT_KEY_EMPTY}
+    remap = np.full(prev_key.shape[0], -1, np.int32)
+    for i, kk in enumerate(prev_key):
+        if kk < LIGHT_KEY_EMPTY and int(kk) in cur_pos:
+            remap[i] = cur_pos[int(kk)]
+    return torch.from_numpy(remap).to(lights.key.device)
+
+
 # ---------------------------------------------------------------------------
 # Per-pixel sampling (used inside the path tracer)
 # ---------------------------------------------------------------------------

@@ -202,6 +202,33 @@ def build_tables(cfg: WorldConfig, blocks, schema, nonsolid_ids: tuple = (),
                             device)
 
 
+def exception_count(cfg: WorldConfig, world: VoxelWorld) -> int:
+    """Number of voxels deviating from the column schema.  Past
+    cfg.max_exceptions the list keeps the lowest keys and drops the rest
+    (Engine._after_edit grows it first)."""
+    blocks = world.blocks.cpu().numpy()
+    pred = predicted_blocks(cfg, world.schema.cpu().numpy(),
+                            world.colmask.cpu().numpy())
+    return int(np.sum((blocks != AIR) & (blocks != pred)))
+
+
+def set_blocks(cfg: WorldConfig, world: VoxelWorld, xyz, ids,
+               nonsolid_ids: tuple = ()) -> VoxelWorld:
+    """Place / remove N blocks (id 0 deletes), then rebuild the tables
+    once on the host, on the world's device."""
+    blocks = world.blocks.cpu().numpy().copy()
+    xyz = np.asarray(xyz, np.int64).reshape(-1, 3)
+    blocks[xyz[:, 0], xyz[:, 1], xyz[:, 2]] = np.asarray(ids, np.uint8)
+    return build_tables(cfg, blocks, world.schema, nonsolid_ids,
+                        world.blocks.device)
+
+
+def set_block(cfg: WorldConfig, world: VoxelWorld, ix, iy, iz, block_id,
+              nonsolid_ids: tuple = ()) -> VoxelWorld:
+    """Place / remove one block (block_id 0 deletes) and rebuild."""
+    return set_blocks(cfg, world, [[ix, iy, iz]], [block_id], nonsolid_ids)
+
+
 def block_id_at(cfg: WorldConfig, world: VoxelWorld, ix, iy, iz):
     """Block id lookup from the dense grid (AIR outside the world)."""
     flat = world.blocks.reshape(-1)

@@ -29,7 +29,12 @@ aligned); K4's sin_cos against torch.sin / torch.cos on every angle in
 mixed per-axis one, on images with flat patches (no direction), at the
 rungs' 1080p shapes, on a downscale and with non-finite pixels; whole
 frames on the card at atrous_iterations 9 with phi_normal 80 and at
-restir_temporal_samples 6."""
+restir_temporal_samples 6.  The gameplay path: K4's lit instances (8
+candidates and 3 taps at bounce 0, 2 and 0 at bounces 1-2) on a lit
+frame's own calls, with blue and white noise; pick_block on the card
+(one K1 launch on one ray) equal to the CPU's; a lantern, a bulk edit
+that grows the exception list and the dev-panel settings in frames on
+the card, K1 to the bit on the grown list."""
 import numpy as np
 import pytest
 import torch
@@ -614,3 +619,80 @@ def test_engine_frame_at_widened_settings(cuda, setting):
     assert counts["shade"] == 2 * st.rendering.total_bounce_limit
     u8 = out.cpu().numpy()
     assert u8.shape == (144, 256, 3) and u8.std() > 1.0
+
+
+# the gameplay path: a lantern at night, the picked block's highlight
+@pytest.fixture(scope="module")
+def lit_engine(cuda):
+    import chip_smoke
+    from rtvb_tpu_torch.render.renderer import Engine
+    eng = Engine(settings=chip_smoke.gameplay_settings(200, 122),
+                 device=cuda)
+    chip_smoke.night_with_lantern(eng)
+    eng.render_realtime_device()      # reservoirs with lantern samples
+    return chip_smoke, eng
+
+
+@pytest.mark.parametrize("noise", ["blue", "white y0=61"])
+@pytest.mark.parametrize("bounce", [0, 1, 2])
+def test_shade_kernel_lit_instances(lit_engine, bounce, noise):
+    smoke, eng = lit_engine
+    calls = smoke.capture_shade_calls(eng)
+    assert [(a[0].n_local, a[0].n_taps) for a, _ in calls] == \
+        [(8, 3), (2, 0), (2, 0)]
+    args, kw = calls[bounce]
+    if noise != "blue":
+        args, kw = _white_noise(args, kw, 61)
+    _shade_against_plain(smoke, args, kw, f"lit bounce {bounce} {noise}")
+
+
+@pytest.fixture(scope="module")
+def pick_pair(cuda):
+    from rtvb_tpu_torch.core.config import Settings
+    from rtvb_tpu_torch.render.renderer import Engine
+    st = Settings().replace(rendering={"render_width": 64,
+                                       "render_height": 36})
+    return Engine(settings=st, device=cuda), Engine(settings=st,
+                                                    device="cpu")
+
+
+@pytest.mark.parametrize("pose", [((32.0, 14.0, 8.0), 1.1, -0.9),
+                                  ((10.3, 9.5, 20.4), 0.0, -0.15),
+                                  ((32.0, 18.0, 8.0), 1.1, -0.35)])
+def test_pick_block_matches_cpu(pick_pair, pose):
+    gpu, cpu = pick_pair
+    pos, yaw, pitch = pose
+    for e in pick_pair:
+        e.set_camera(pos=pos, yaw=yaw, pitch=pitch)
+    K.reset_launch_counts()
+    got = gpu.pick_block()
+    assert K.launch_counts()["trace"] == 1
+    assert got == cpu.pick_block()
+
+
+def test_engine_gameplay_edits_on_card(cuda):
+    import chip_smoke
+    from rtvb_tpu_torch.assets import blocks as B
+    from rtvb_tpu_torch.ops import dda
+    from rtvb_tpu_torch.render.renderer import Engine
+    eng = Engine(settings=chip_smoke.gameplay_settings(160, 90),
+                 device=cuda)
+    pick = chip_smoke.night_with_lantern(eng)
+    assert pick[0]
+    K.reset_launch_counts()
+    out = eng.render_realtime_device()
+    assert K.launch_counts()["shade"] == 3
+    xyz = chip_smoke.surface_bricks(eng)
+    eng.set_blocks(xyz, np.full(len(xyz), B.BRICK, np.uint8))
+    assert eng._tables.exc_key.shape[0] == 1024
+    traces, _, _ = chip_smoke.capture_frame_calls(eng)
+    for o, d, cap, any_hit in traces:
+        a = dda.trace_cuda(o, d, eng._tables, eng._tp, cap, any_hit)
+        b = dda.trace_plain(o, d, eng._tables, eng._tp, cap, any_hit)
+        for f in (("hit", "t") if any_hit else dda.HitRecord._fields):
+            assert _bits_equal(getattr(a, f), getattr(b, f)), f
+    eng.apply_settings(eng.settings.replace(**chip_smoke.DEV_PANEL))
+    for _ in range(2):
+        out = eng.render_realtime_device()
+    u8 = out.cpu().numpy()
+    assert u8.shape == (90, 160, 3) and (u8[45, 79:81] == 255).all()
