@@ -72,7 +72,21 @@
    bit, and in turns against the tables from before the edit; a UI overlay and apply_settings with pre_pass,
    lens_flare, crosshair and the Preetham sky, two frames; then frames
    1 and 2 of the lit, highlighted night world at 320×180 on the card
-   against the CPU, and the pick on both equal.
+   against the CPU, and the pick on both equal;
+10. the frame as a CUDA graph (1920×1080, the shipped settings; the
+   engine replays a captured graph for render_realtime_device and
+   render_realtime_device_batch, and `_eager_frame` runs the captured
+   function op by op, which the phases above use where they hook the
+   frame's calls): the 8-frame batch against 8 eager frames of a copy of
+   the same states, bit for bit in frames and states, twice, natively and
+   at the 1/2 rung (K7 replayed); one-frame replays against eager frames
+   along 10 frames of the flythrough, then a set_block (a recapture) and
+   3 more; restir_temporal_samples 6 (K4's generic instance) replayed;
+   launch counts under replay equal the eager ones; then in turns on one
+   engine the eager frame, the one-frame replay and the batch's time a
+   frame, capture ms, peak memory with and without graphs, profiles of
+   replays and of eager frames, and live and reserved memory over 20
+   edit-and-frame cycles (flat: stale graphs are released).
 
 Exits non-zero, without the final line, on any failure or without a card.
 The last line is {"ok": true, "device": {...}}; the line before it lists
@@ -278,8 +292,8 @@ def exact(fields):
 
 
 def capture_frame_calls(eng):
-    """The K1, K6 and K2 calls of one frame of `eng` (it advances the
-    engine's state like any frame), their tensors copied: ([(o, d, t_cap,
+    """The K1, K6 and K2 calls of one eager frame of `eng` (it advances
+    the engine's state like any frame), their tensors copied: ([(o, d, t_cap,
     any_hit)], [(illum, var, depth, normal, step, phis)], [(o, d, tri,
     t_cap)]) in call order."""
     from rtvb_tpu_torch.ops import triangles
@@ -307,7 +321,7 @@ def capture_frame_calls(eng):
     pathtracer.trace, denoiser.atrous_pass = rec_trace, rec_atrous
     triangles.intersect_packed = rec_tri
     try:
-        eng.render_realtime_device()
+        eng._eager_frame()
     finally:
         pathtracer.trace, denoiser.atrous_pass = orig_trace, orig_atrous
         triangles.intersect_packed = orig_tri
@@ -794,7 +808,7 @@ def synthetic_lights(k: int, n_lit: int, seed: int, device):
 
 
 def capture_shade_calls(eng):
-    """The fused_shade calls of one frame of `eng` (it advances the
+    """The fused_shade calls of one eager frame of `eng` (it advances the
     engine's state like any frame): [(args, kwargs)] per bounce."""
     from rtvb_tpu_torch.render import ris_kernel as RK
     calls = []
@@ -805,7 +819,7 @@ def capture_shade_calls(eng):
         return orig(*a, **kw)
     RK.fused_shade = record
     try:
-        eng.render_realtime_device()
+        eng._eager_frame()
     finally:
         RK.fused_shade = orig
     return calls
@@ -1007,9 +1021,13 @@ def _merged_us(intervals) -> float:
     return total
 
 
-def profile_frames(eng, n: int = 3) -> dict:
-    """torch.profiler over n frames: host ms per engine stage, device busy
-    share of the window, kernels per frame and the top device kernels."""
+def profile_frames(eng, n: int = 3, frame_fn=None) -> dict:
+    """torch.profiler over n frames of frame_fn (by default eager frames,
+    whose stages are profiler ranges): host ms per engine stage (eager
+    frames only: a replay runs no Python), device busy share of the
+    window, device busy ms and kernels per frame and the top device
+    kernels."""
+    frame_fn = frame_fn or eng._eager_frame
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from rtvb_tpu_torch.render.renderer import STAGES
@@ -1018,7 +1036,7 @@ def profile_frames(eng, n: int = 3) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            eng.render_realtime_device()
+            frame_fn()
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.events()
@@ -1042,7 +1060,7 @@ def profile_frames(eng, n: int = 3) -> dict:
             per_stage[ranges[i][1]].append(
                 (k.time_range.start, k.time_range.end))
     stages = {}
-    for name in STAGES:
+    for name in STAGES if ranges else ():
         rng = [e for e in host if e.name == name]
         check(len(rng) == n, f"profiler saw {len(rng)} {name} ranges")
         stages[name] = dict(
@@ -1062,8 +1080,10 @@ def profile_frames(eng, n: int = 3) -> dict:
             api.setdefault(e.name, [0, 0.0])
             api[e.name][0] += 1
             api[e.name][1] += e.time_range.elapsed_us() / 1e3
+    check(dev, "the profiler saw no device work")
     return dict(frames=n, wall_ms_per_frame=wall_ms / n,
                 span_ms=span_ms, device_busy_ms=busy_ms,
+                device_busy_ms_per_frame=busy_ms / n,
                 device_busy_share=busy_ms / span_ms if span_ms else None,
                 device_kernels_per_frame=len(dev) / n, stages=stages,
                 top_kernels=[dict(name=k[:80], count=c, ms_per_frame=t / n)
@@ -1076,7 +1096,8 @@ def profile_frames(eng, n: int = 3) -> dict:
 def log_profile(label: str, prof: dict):
     log(f"profile of {prof['frames']} frames ({label}): "
         f"{prof['wall_ms_per_frame']:.3f} ms/frame under the profiler, "
-        f"device busy {prof['device_busy_share']:.4f} of the window, "
+        f"device busy {prof['device_busy_share']:.4f} of the window "
+        f"({prof['device_busy_ms_per_frame']:.3f} ms a frame), "
         f"{prof['device_kernels_per_frame']:.0f} device ops/frame")
     for name, st in prof["stages"].items():
         log(f"  {name:15s} host {st['host_ms']:.3f} ms  device busy "
@@ -1090,17 +1111,18 @@ def log_profile(label: str, prof: dict):
 
 
 def copy_states(src, dst):
-    """Carry the feedback states of one engine to another device."""
+    """Carry the feedback states of one engine to another (a copy each:
+    the engines write their states in place)."""
     from rtvb_tpu_torch.render.denoiser import DenoiserState
     from rtvb_tpu_torch.render.postprocess import PostState
     from rtvb_tpu_torch.render.restir import ReSTIRState
     dev = dst.device
-    ds = src.denoiser_state
     dst.denoiser_state = DenoiserState(
-        *(getattr(ds, f).to(dev) for f in DenoiserState._fields[:-1]),
-        bootstrapped=ds.bootstrapped)
-    dst.restir_state = ReSTIRState(data=src.restir_state.data.to(dev))
-    dst.post_state = PostState(exposure=src.post_state.exposure.to(dev))
+        *(t.to(dev, copy=True) for t in src.denoiser_state))
+    dst.restir_state = ReSTIRState(
+        data=src.restir_state.data.to(dev, copy=True))
+    dst.post_state = PostState(
+        exposure=src.post_state.exposure.to(dev, copy=True))
     dst.frame_index = src.frame_index
 
 
@@ -1160,8 +1182,8 @@ def whole_frame_vs_cpu(settings, setup=None):
 # ---------------------------------------------------------------------------
 
 def capture_easu_input(eng):
-    """The (img, out_h, out_w) that one frame of `eng` hands to the EASU
-    wrapper (the frame advances the engine like any frame)."""
+    """The (img, out_h, out_w) that one eager frame of `eng` hands to the
+    EASU wrapper (the frame advances the engine like any frame)."""
     from rtvb_tpu_torch.ops import easu_kernel as EK
     seen = []
     orig = EK.easu
@@ -1171,7 +1193,7 @@ def capture_easu_input(eng):
         return orig(img, out_h, out_w)
     EK.easu = record
     try:
-        eng.render_realtime_device()
+        eng._eager_frame()
     finally:
         EK.easu = orig
     check(len(seen) == 1, f"{len(seen)} EASU calls in a frame at scale "
@@ -1399,6 +1421,12 @@ def gameplay(shipped, K, rep: Report) -> dict:
     out = eng.render_realtime_device()
     sync()
     edit_ms = (time.perf_counter() - t0) * 1e3
+    lit_capture = eng.graph_log[-1]
+    check(lit_capture["key"][-1] == eng._n_local,
+          f"the first lit frame captured no lit graph: {lit_capture}")
+    log(f"the lit variant's graph: its first frame eager "
+        f"{lit_capture['eager_ms']:.3f} ms, capture "
+        f"{lit_capture['capture_ms']:.3f} ms")
     check(eng._n_local == eng.settings.rendering.local_light_candidates,
           "the lantern did not light the frame")
     soup1 = eng.entity_buffers().tri_packed.shape[0]
@@ -1526,6 +1554,7 @@ def gameplay(shipped, K, rep: Report) -> dict:
         f"{dev_counts}")
     return dict(pick=pick, pick_ms=pick_ms, pick_ms_all=picks,
                 warm_join_ms=warm_ms, edit_ms=edit_ms,
+                lit_capture=lit_capture,
                 edit_host_ms=edit_host_ms, soup_rows=(soup0, soup1),
                 frame_ms=lit_ms, frame_ms_all=lit_times,
                 enqueue_ms=lit_enq, launches=counts, in_turns_ms=turns,
@@ -1578,6 +1607,250 @@ def dynres_walk(eng, K, n_frames: int = 30) -> dict:
           "controller's on the recorded times")
     return dict(scales=scales, frame_ms=times, launches=counts,
                 frames_below_1=below)
+
+
+# ---------------------------------------------------------------------------
+# The frame as a CUDA graph: the batch, the one-frame replay, their costs
+# ---------------------------------------------------------------------------
+
+GRAPH_BATCH = 8               # bench.py's BATCH
+
+
+def states_equal(a, b, label):
+    """The two engines' feedback states and frame index, bit for bit."""
+    import torch
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+    pairs = [("restir", a.restir_state.data, b.restir_state.data),
+             ("exposure", a.post_state.exposure, b.post_state.exposure)]
+    pairs += [(f"denoiser.{f}", x, y) for f, x, y in zip(
+        a.denoiser_state._fields, a.denoiser_state, b.denoiser_state)]
+    for name, x, y in pairs:
+        check(torch.equal(bits(x), bits(y)), f"{label}: {name} differs")
+    check(a.frame_index == b.frame_index,
+          f"{label}: frame index {a.frame_index} against {b.frame_index}")
+
+
+def frames_equal(a, b, label):
+    import torch
+    check(a.shape == b.shape and torch.equal(a, b),
+          f"{label}: the u8 frames differ "
+          f"({int((a != b).sum()) if a.shape == b.shape else a.shape})")
+
+
+def graph_batch_vs_eager(settings, nb: int = GRAPH_BATCH,
+                         n_batches: int = 2) -> dict:
+    """render_realtime_device_batch(nb) of one engine against nb eager
+    frames of a copy of its states (the history-camera rule: the camera is
+    moved first), bit for bit, frames and states; n_batches batches, each
+    from the states the last left.  The engine's first batch runs eagerly
+    and captures the graph; the compared batches are replays."""
+    import torch
+    from rtvb_tpu_torch.render.renderer import Engine
+    eng = Engine(settings=settings, device="cuda")
+    eng.render_realtime_device()
+    eng.render_realtime_device_batch(nb)         # eager, then the capture
+    check(len(eng.graph_log) == 2, f"captures {eng.graph_log}")
+    out = {}
+    for i in range(n_batches):
+        pos, yaw, _ = eng.camera_pose()
+        eng.set_camera(pos=(pos[0] + 0.25, pos[1], pos[2] - 0.1),
+                       yaw=yaw + 0.02)
+        ref = copy.copy(eng)
+        got = eng.render_realtime_device_batch(nb)
+        want = torch.stack([ref._eager_frame() for _ in range(nb)])
+        sync()
+        check(tuple(got.shape) == (nb, eng.out_height, eng.out_width, 3),
+              f"batch shape {tuple(got.shape)}")
+        frames_equal(got, want, f"batch {i + 1} of {nb}")
+        states_equal(eng, ref, f"batch {i + 1} of {nb}")
+        check(eng._light_remap is eng._identity_remap(), "remap after batch")
+        check(all(torch.equal(x, y) for x, y in zip(eng.history_camera,
+                                                     eng.camera)),
+              "the history camera after a batch is not the camera")
+        out[f"batch {i + 1}"] = "bit-exact"
+    check(len(eng.graph_log) == 2, "a batch replay captured anew")
+    return dict(out, internal=(eng.width, eng.height), graph_log=eng.graph_log)
+
+
+def graph_flythrough_vs_eager(settings, n: int = 10,
+                              n_after: int = 3) -> dict:
+    """One-frame replays against eager frames of a copy, bit for bit,
+    along n frames of the flythrough path; then a set_block on both (the
+    next replayed frame captures anew) and n_after more frames."""
+    from rtvb_tpu_torch.assets import blocks as B
+    from rtvb_tpu_torch.render.renderer import Engine
+    from rtvb_tpu_torch.utils.flypath import apply_flythrough
+    eng = Engine(settings=settings, device="cuda")
+    eng.render_realtime_device()                 # eager, then the capture
+    ref = copy.copy(eng)
+    p = q = (None, None)
+    for i in range(n):
+        p = apply_flythrough(eng, i, n, *p)
+        q = apply_flythrough(ref, i, n, *q)
+        frames_equal(eng.render_realtime_device(), ref._eager_frame(),
+                     f"flythrough frame {i}")
+        states_equal(eng, ref, f"flythrough frame {i}")
+    check(len(eng.graph_log) == 1, "the flythrough captured anew")
+    x, z = 20, 30
+    y = int(eng.world.blocks[x, :, z].nonzero().max()) + 1
+    for e in (eng, ref):
+        e.set_block(x, y, z, B.BRICK)
+    for i in range(n_after):
+        frames_equal(eng.render_realtime_device(), ref._eager_frame(),
+                     f"frame {i} after the edit")
+        states_equal(eng, ref, f"frame {i} after the edit")
+    check(len(eng.graph_log) == 2, f"the edit did not recapture once: "
+          f"{len(eng.graph_log)} captures")
+    return dict(frames=n, after_edit=n_after, graph_log=eng.graph_log)
+
+
+def graph_widened_vs_eager(settings, n: int = 2) -> dict:
+    """restir_temporal_samples 6 (K4's generic instance, its pointer table
+    written by a kernel on the stream): n replays against eager frames."""
+    from rtvb_tpu_torch.render.renderer import Engine
+    st = settings.replace(rendering={"restir_temporal_samples": 6})
+    eng = Engine(settings=st, device="cuda")
+    eng.render_realtime_device()
+    ref = copy.copy(eng)
+    for i in range(n):
+        frames_equal(eng.render_realtime_device(), ref._eager_frame(),
+                     f"restir_temporal_samples 6, frame {i}")
+        states_equal(eng, ref, f"restir_temporal_samples 6, frame {i}")
+    return dict(frames=n, graph_log=eng.graph_log)
+
+
+def graph_launch_counts(eng, K, n: int = 3) -> dict:
+    """Launch counts of n eager frames and of n replays: the same."""
+    K.reset_launch_counts()
+    for _ in range(n):
+        eng._eager_frame()
+    eager = K.launch_counts()
+    eng.render_realtime_device()                  # a replay, not counted
+    K.reset_launch_counts()
+    for _ in range(n):
+        eng.render_realtime_device()
+    replay = K.launch_counts()
+    sync()
+    log(f"launch counts of {n} frames, eager {eager}; replayed {replay}")
+    check(eager == replay, f"replay counts {replay} != eager {eager}")
+    check(replay["shade"] == 3 * n and replay["trace"] == 5 * n,
+          f"replay counts {replay}")
+    return dict(eager=eager, replay=replay)
+
+
+def graph_memory_cycles(eng, cycles: int = 20) -> dict:
+    """cycles × (an edit, a frame: a recapture): live and reserved device
+    memory after each (the reserved after empty_cache, which returns the
+    released graphs' pools), and the check that they stay flat."""
+    import torch
+    from rtvb_tpu_torch.assets import blocks as B
+    x, z = 40, 20
+    y = int(eng.world.blocks[x, :, z].nonzero().max()) + 1
+    live, reserved = [], []
+    for i in range(cycles):
+        eng.set_block(x, y, z, B.BRICK if i % 2 == 0 else 0)
+        eng.render_realtime_device()
+        sync()
+        torch.cuda.empty_cache()
+        live.append(torch.cuda.memory_allocated())
+        reserved.append(torch.cuda.memory_reserved())
+    check(len(eng._graphs) == 1, f"{len(eng._graphs)} graphs held")
+    mb = 2 ** 20
+    grow_live = (max(live[1:]) - live[1]) / mb
+    grow_res = (max(reserved[1:]) - reserved[1]) / mb
+    log(f"{cycles} edit-and-frame cycles: live MiB "
+        f"{[round(v / mb, 1) for v in live]}; reserved MiB after "
+        f"empty_cache {[round(v / mb, 1) for v in reserved]}")
+    check(grow_live <= 64 and grow_res <= 64,
+          f"graph memory grew over {cycles} cycles: live +{grow_live:.1f} "
+          f"MiB, reserved +{grow_res:.1f} MiB")
+    return dict(live_bytes=live, reserved_bytes=reserved,
+                growth_live_mib=grow_live, growth_reserved_mib=grow_res)
+
+
+def graph_phase(shipped, K) -> dict:
+    """The frame as a CUDA graph at 1920×1080 with the shipped settings:
+    the bit-exact checks (the 8-frame batch native and at the 1/2 rung,
+    the one-frame replay along the flythrough and after an edit, K4's
+    generic instance), launch counts under replay, graph memory over 20
+    edits; then, in turns in one engine, the eager frame, the one-frame
+    replay and the batch's time a frame, capture ms, peak memory with and
+    without graphs and a profile of replays."""
+    import torch
+    from rtvb_tpu_torch.render.renderer import Engine
+    out = {}
+    out["batch native"] = graph_batch_vs_eager(shipped)
+    log(f"graph batch of {GRAPH_BATCH}, native: {out['batch native']}")
+    half = shipped.replace(rendering={"render_scale": 0.5})
+    easu0 = K.launch_counts()["easu"]
+    out["batch 1/2 rung"] = graph_batch_vs_eager(half)
+    check(K.launch_counts()["easu"] > easu0, "the 1/2-rung batch ran no K7")
+    log(f"graph batch of {GRAPH_BATCH}, 1/2 rung: {out['batch 1/2 rung']}")
+    out["flythrough"] = graph_flythrough_vs_eager(shipped)
+    log(f"one-frame replays along the flythrough and after an edit: "
+        f"bit-exact; captures {out['flythrough']['graph_log']}")
+    out["restir_temporal_samples 6"] = graph_widened_vs_eager(shipped)
+    log("restir_temporal_samples 6 (K4 generic), replays: bit-exact")
+
+    # the costs, on one engine, peak memory first without graphs
+    sync()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(settings=shipped, device="cuda")
+    for _ in range(2):
+        eng._eager_frame()
+    sync()
+    peak_eager = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eng.render_realtime_device()
+    eng.render_realtime_device_batch(GRAPH_BATCH)
+    eng.render_realtime_device()
+    eng.render_realtime_device_batch(GRAPH_BATCH)
+    sync()
+    peak_graphs = torch.cuda.max_memory_allocated()
+    captures = {("batch" if isinstance(g["key"][0], tuple) else "frame"):
+                g for g in eng.graph_log}
+    log(f"peak memory allocated: eager frames {peak_eager / 2 ** 20:.1f} MiB,"
+        f" with the one-frame and {GRAPH_BATCH}-frame graphs "
+        f"{peak_graphs / 2 ** 20:.1f} MiB; captures "
+        f"{[(k, round(g['capture_ms'], 3)) for k, g in captures.items()]}")
+    out["launches"] = graph_launch_counts(eng, K)
+
+    fns = {"eager": lambda: eng._eager_frame(),
+           "replay": lambda: eng.render_realtime_device(),
+           f"batch {GRAPH_BATCH}": lambda: eng.render_realtime_device_batch(
+               GRAPH_BATCH)}
+    turns = {k: [] for k in fns}
+    labels = list(fns)
+    for i in range(8):
+        for label in (labels if i % 2 == 0 else labels[::-1]):
+            sync()
+            t0 = time.perf_counter()
+            fns[label]()
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            turns[label].append(ms / (GRAPH_BATCH if label.startswith(
+                "batch") else 1))
+    for label, ts in turns.items():
+        log(f"frame {eng.out_width}x{eng.out_height} in turns, {label} (ms a"
+            f" frame): median {statistics.median(ts):.3f}, range "
+            f"{min(ts):.3f} - {max(ts):.3f} {[round(t, 3) for t in ts]}")
+    prof_replay = profile_frames(eng, frame_fn=eng.render_realtime_device)
+    log_profile("one-frame replays", prof_replay)
+    prof_eager = profile_frames(eng)
+    log_profile("eager frames", prof_eager)
+    out["memory"] = graph_memory_cycles(eng)
+    recapture = eng.graph_log[-20:]
+    out.update(turns_ms=turns, peak_eager_bytes=peak_eager,
+               peak_graphs_bytes=peak_graphs,
+               capture_ms={k: g["capture_ms"] for k, g in captures.items()},
+               first_frame_eager_ms={k: g["eager_ms"]
+                                     for k, g in captures.items()},
+               recapture_ms=[g["capture_ms"] for g in recapture],
+               profile_replay=prof_replay, profile_eager=prof_eager)
+    return out
 
 
 def ptxas_report(build_log: str) -> list:
@@ -1896,6 +2169,12 @@ def main() -> int:
     whole["gameplay"] = whole_frame_vs_cpu(gameplay_settings(*VS_CPU),
                                            setup=night_with_lantern)
 
+    phase("graph")
+    # the frame as a CUDA graph: replays and batches against eager frames,
+    # bit for bit, then their costs in turns
+    del eng
+    graph = graph_phase(shipped, K)
+
     # a frame's time of K1, K2, K4 and K6 from the launches the frame
     # makes: K1's and K2's five waves and K6's four steps as captured; K4
     # bounce 0 (case a) and bounces 1-2 (case f, the same instance and
@@ -1947,7 +2226,7 @@ def main() -> int:
                        profile=prof, profile_inline=prof_inline,
                        rungs=rungs, rung_turns_ms=rung_turns,
                        profile_half_rung=prof_half, dynres_walk=walk,
-                       gameplay=play,
+                       gameplay=play, graph=graph,
                        phase_s=phase_s,
                        kernels=kernels), f, indent=1)
     phase("end")

@@ -13,9 +13,10 @@ include) as of another commit C, written with
 Each DIR is built with the package's nvcc flags into a temporary
 directory, and its entry points take the place of this checkout's for its
 turns.  A build that exports this checkout's entry point of a kernel runs
-through it; one that exports only the earlier one (K3's rtvb_texture,
-on the planar atlas; K4's rtvb_shade, with no pointer table; K6's
-rtvb_atrous, with a power-of-two phi_normal as an int) runs through that,
+through it; one that exports only an earlier one (K3's rtvb_texture,
+on the planar atlas; K4's rtvb_shade_tab, with the frame index as a host
+value, or rtvb_shade, with no pointer table either; K6's rtvb_atrous,
+with a power-of-two phi_normal as an int) runs through that,
 as its wrapper called it, on the cases it takes (not K4's counts past 4
 taps or 16 candidates, not K6's phi_normal other than a power of two or
 its steps past 126).  For every case the builds run in turns
@@ -32,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import json
 import os
 import shutil
@@ -107,6 +109,17 @@ def swapped(module, attr, stand_in):
 # the planar atlas of each interleaved copy K3's cases read, for the
 # earlier K3 entry point: {lo4's data pointer: (lo, hi)}
 PLANAR = {}
+# the frame index of each K4 case, read once (before the case is timed),
+# for the earlier K4 entry points: {data pointer: (tensor, low 32 bits)}
+FRAMES = {}
+
+
+def host_frame(t) -> int:
+    """The host value of a K4 case's device frame index (cached)."""
+    held = FRAMES.get(t.data_ptr())
+    if held is None or held[0] is not t:
+        held = FRAMES[t.data_ptr()] = (t, int(t.item()) & 0xFFFFFFFF)
+    return held[1]
 
 
 def earlier_entry(kernel, library):
@@ -121,15 +134,22 @@ def earlier_entry(kernel, library):
         return ("rtvb_texture", [P] * 6 + [I] * 3 + [P],
                 lambda a: a[:4] + PLANAR[a[4].data_ptr()] + a[6:])
     if kernel == "shade":
-        # the same arguments but the pointer table (the last)
+        # the frame index (argument 13) as a host value, not in device
+        # memory: rtvb_shade_tab; before it, rtvb_shade, with no pointer
+        # table (the last argument) either
         from rtvb_tpu_torch.render import ris_kernel as RK
+        tab = hasattr(library.get(), "rtvb_shade_tab")
+        types = list(RK.SHADE.argtypes[:-1])       # less the stream
+        types[13] = ctypes.c_uint32
 
         def shade(a):
             n_local, n_taps = a[15], a[16]
-            if n_taps > 4 or n_local > 16:
+            if not tab and (n_taps > 4 or n_local > 16):
                 raise NotComparable
-            return a[:-1]
-        return ("rtvb_shade", RK.SHADE.argtypes[:-2], shade)
+            a = a[:13] + (host_frame(a[13]),) + a[14:]
+            return a if tab else a[:-1]
+        return (("rtvb_shade_tab", types, shade) if tab
+                else ("rtvb_shade", types[:-1], shade))
     if kernel == "atrous":
         # (..., phi_lum, phi_depth, phi_normal, mode, n_sq, out, out_var)
         # → (..., phi_lum, phi_depth, 2^n_sq, out, out_var)

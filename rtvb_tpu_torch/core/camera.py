@@ -1,6 +1,8 @@
 """Pinhole camera: uv↔world mappings, ray generation, reprojection (port of
 rtvb_tpu/core/camera.py).  Camera fields are 0-d float32 tensors on the
-engine's device."""
+engine's device; the Engine's cameras are views of one fixed buffer
+(`camera_view`), written in place from a host copy of the leaves
+(`camera_leaves`)."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -59,17 +61,30 @@ class Camera(NamedTuple):
         return 2.0 * self.tan_half_fov_y / float(np.float32(height))
 
 
+def camera_leaves(pos=(0.0, 0.0, 0.0), yaw=0.0, pitch=0.0,
+                  fov_y_degrees=60.0, aspect=16.0 / 9.0) -> np.ndarray:
+    """The seven Camera leaves as a (7,) float32 host array, computed in
+    numpy float32 exactly like the JAX package's make_camera."""
+    f32 = np.float32
+    return np.array([f32(pos[0]), f32(pos[1]), f32(pos[2]), f32(yaw),
+                     f32(pitch),
+                     f32(np.tan(np.deg2rad(fov_y_degrees) * 0.5)),
+                     f32(aspect)], np.float32)
+
+
 def make_camera(pos=(0.0, 0.0, 0.0), yaw=0.0, pitch=0.0,
                 fov_y_degrees=60.0, aspect=16.0 / 9.0, device="cpu") -> Camera:
     """Leaves are computed in numpy float32 exactly like the JAX package's
     make_camera, then placed on `device`."""
-    f32 = np.float32
-    vals = dict(pos_x=f32(pos[0]), pos_y=f32(pos[1]), pos_z=f32(pos[2]),
-                yaw=f32(yaw), pitch=f32(pitch),
-                tan_half_fov_y=f32(np.tan(np.deg2rad(fov_y_degrees) * 0.5)),
-                aspect=f32(aspect))
-    return Camera(**{k: torch.tensor(v, dtype=torch.float32, device=device)
-                     for k, v in vals.items()})
+    vals = camera_leaves(pos, yaw, pitch, fov_y_degrees, aspect)
+    return Camera(*(torch.tensor(v, dtype=torch.float32, device=device)
+                    for v in vals))
+
+
+def camera_view(buf: torch.Tensor) -> Camera:
+    """A Camera whose leaves are 0-d views of a (7,) float32 buffer: a
+    fixed camera that is updated by writing the buffer in place."""
+    return Camera(*(buf[i] for i in range(len(Camera._fields))))
 
 
 def pixel_uv(width: int, height: int, jitter_u=0.5, jitter_v=0.5, y0=0,

@@ -55,10 +55,12 @@
 // others.  The shipped frame's (n_local, n_taps) pairs are compile-time
 // instances with unrolled loops, their plane pointers in the launch's
 // parameters; any other pair runs the generic instance with runtime
-// counts: its plane pointers in a device table the wrapper allocates
-// (any number of taps), its staged tile and Sobol terms sized from the
+// counts: its plane pointers in a device table the wrapper allocates and a
+// small kernel fills on the stream (any number of taps), its staged tile and Sobol terms sized from the
 // counts in dynamic shared memory (opting past 48 KB), so only the card's
-// shared memory bounds the counts (the wrapper raises past it).
+// shared memory bounds the counts (the wrapper raises past it).  The frame
+// index is read from device memory, once a block, so the launch can be
+// captured in a CUDA graph and replayed frame after frame.
 #include "shade_math.cuh"
 
 namespace {
@@ -121,7 +123,7 @@ struct ShadeParams {
   const int* envi;
   const uint32_t* basis;
   int HW, W, y0, K, n_local, n_taps, base_dim, n_draws, n_in, n_tiles;
-  uint32_t frame;
+  const long long* frame;      // the frame index, in device memory
   bool ent_unreachable;
   float m_cap, dis_thr;
 };
@@ -207,6 +209,7 @@ struct Reservoir {
 struct Ctx {
   const ShadeParams& P;
   const float* sob;      // to_unit_float(sobol(frame, base_dim + k)), BN
+  uint32_t frame;        // the frame index (its low 32 bits)
   uint32_t base;
   uint32_t bnw[4];
   Mat mat;
@@ -216,7 +219,7 @@ struct Ctx {
   __device__ __forceinline__ float draw(int k) const {
     const int dim = P.base_dim + k;
     if (BN) return bn_draw(bnw, sob[k], dim);
-    return pcg_draw(base, P.frame, dim);
+    return pcg_draw(base, frame, dim);
   }
   __device__ __forceinline__ float lf(int row, int slot) const {
     return __ldg(P.lf + row * P.K + rtvb::clampi(slot, 0, P.K - 1));
@@ -336,6 +339,7 @@ struct Tables {
   const float* envf;     // 2 × ENV_N
   const int* envi;       // ENV_N
   const float* sob;      // this launch's Sobol terms (BN)
+  uint32_t frame;        // the frame index, loaded once a block
 };
 
 // one pixel: `x` is its slot of the staged tile (plane k at x[k * TILE])
@@ -349,7 +353,7 @@ __device__ __forceinline__ void shade_pixel(const ShadeIO& io,
   const float* s_sf = tab.sf;
 
   auto in = [&](int k) { return x[k * TILE]; };
-  Ctx c{P, tab.sob};
+  Ctx c{P, tab.sob, tab.frame};
   c.p = {in(0), in(1), in(2)};
   c.n = {in(3), in(4), in(5)};
   c.wo = {in(6), in(7), in(8)};
@@ -542,6 +546,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   __shared__ __align__(8) uint64_t s_full;   // the tile's planes are in
   __shared__ unsigned s_done;                 // warps done with a tile
   __shared__ int s_n_bulk;                    // planes a bulk copy takes
+  __shared__ uint32_t s_frame;                // the frame index
   const int n_in = NT >= 0 ? planes_in(NT, BN) : P.n_in;
   float* s_sob = TAB ? s_planes + n_in * TILE : s_sob_fixed;
   if (threadIdx.x == 0) {
@@ -551,20 +556,26 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     if (TAB)
       for (int k = 0; k < n_in; ++k) n_bulk += bulk_ok<TAB>(io, k);
     s_n_bulk = TAB ? n_bulk : __popcll(io.bulk);
+    // the frame index from device memory: one load a block, so a captured
+    // graph's replays each draw their own frame's numbers
+    s_frame = static_cast<uint32_t>(*P.frame);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   for (int i = threadIdx.x; i < SF_LEN; i += THREADS) s_sf[i] = P.sf[i];
   for (int i = threadIdx.x; i < 2 * ENV_N; i += THREADS)
     s_envf[i] = P.envf[i];
   for (int i = threadIdx.x; i < ENV_N; i += THREADS) s_envi[i] = P.envi[i];
-  if (BN)
-    for (int i = threadIdx.x; i < P.n_draws; i += THREADS)
-      s_sob[i] = to_unit_float(sobol(P.basis, P.frame, P.base_dim + i));
   __syncthreads();
+  const uint32_t frame = s_frame;
+  if (BN) {
+    for (int i = threadIdx.x; i < P.n_draws; i += THREADS)
+      s_sob[i] = to_unit_float(sobol(P.basis, frame, P.base_dim + i));
+    __syncthreads();
+  }
   const int n_bulk = s_n_bulk;
   if (threadIdx.x == 0)
     issue_tile<TAB>(io, P, n_in, n_bulk, blockIdx.x, s_planes, &s_full);
-  const Tables tab{s_sf, s_envf, s_envi, s_sob};
+  const Tables tab{s_sf, s_envf, s_envi, s_sob, frame};
   // every plane comes in by a bulk copy (for a whole tile)
   const bool all_bulk = n_bulk == n_in;
 
@@ -637,25 +648,55 @@ cudaError_t dispatch(const ShadeIO& io, const ShadeParams& P,
   return launch<-1, -1, BN>(io, P, s);
 }
 
+// the generic instance's pointer table, written on the stream by a kernel
+// that takes the pointers by value (a captured graph keeps them in the
+// kernel's parameters; a copy from host memory would replay a dead
+// buffer)
+constexpr int PTR_CHUNK = 256;
+struct PtrChunk {
+  const float* p[PTR_CHUNK];
+};
+
+__global__ void fill_ptr_table(const __grid_constant__ PtrChunk c, int n,
+                               const float** dst) {
+  const int i = threadIdx.x;
+  if (i < n) dst[i] = c.p[i];
+}
+
+cudaError_t write_ptr_table(const void* const* in, int n_in, void* in_tab,
+                            cudaStream_t s) {
+  const float** dst = static_cast<const float**>(in_tab);
+  for (int at = 0; at < n_in; at += PTR_CHUNK) {
+    PtrChunk c;
+    const int n = n_in - at < PTR_CHUNK ? n_in - at : PTR_CHUNK;
+    for (int i = 0; i < PTR_CHUNK; ++i)
+      c.p[i] = i < n ? static_cast<const float*>(in[at + i]) : nullptr;
+    fill_ptr_table<<<1, PTR_CHUNK, 0, s>>>(c, n, dst + at);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // in / out_f / out_i: host arrays of device plane pointers, in
-// ris_kernel.fused_shade_cuda's order; in_tab: device room for n_in
-// pointers, which the generic instance reads its planes from (copied here
-// on the stream; may be null for a pair with a compile-time instance).
-// Returns a cudaError_t code.
-RTVB_EXPORT int rtvb_shade_tab(const void* const* in, int n_in,
+// ris_kernel.fused_shade_cuda's order; frame: the frame index (int64) in
+// device memory; in_tab: device room for n_in pointers, which the generic
+// instance reads its planes from (written here on the stream; may be null
+// for a pair with a compile-time instance).  Returns a cudaError_t code.
+RTVB_EXPORT int rtvb_shade_dev(const void* const* in, int n_in,
                                void* const* out_f, void* const* out_i,
                                const float* sf, const float* lf,
                                const int* li, const float* envf,
                                const int* envi, const int* basis, int H,
-                               int W, int y0, unsigned int frame, int K,
+                               int W, int y0, const long long* frame, int K,
                                int n_local, int n_taps, int base_dim,
                                int ent_unreachable, int blue_noise,
                                float m_cap, float dis_thr, void* in_tab,
                                void* stream) {
   const bool generic = !compiled_pair(n_local, n_taps);
-  if (n_taps < 0 || n_local < 0 || K < 1 ||
+  if (n_taps < 0 || n_local < 0 || K < 1 || frame == nullptr ||
       n_in != planes_in(n_taps, blue_noise != 0) ||
       (generic && in_tab == nullptr) ||
       (!generic && n_in > N_IN_MAX))
@@ -695,8 +736,7 @@ RTVB_EXPORT int rtvb_shade_tab(const void* const* in, int n_in,
   P.dis_thr = dis_thr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (generic) {
-    const cudaError_t ec = cudaMemcpyAsync(
-        in_tab, in, sizeof(void*) * n_in, cudaMemcpyHostToDevice, s);
+    const cudaError_t ec = write_ptr_table(in, n_in, in_tab, s);
     if (ec != cudaSuccess) return static_cast<int>(ec);
   }
   const cudaError_t e =

@@ -103,7 +103,8 @@ def denoiser_state(jd, device="cpu") -> DenoiserState:
         moments=_t(jd.moments, device), hist_len=_t(jd.hist_len, device),
         prev_depth=_t(jd.prev_depth, device),
         prev_normal=_t(jd.prev_normal, device),
-        bootstrapped=bool(_np(jd.bootstrapped)))
+        bootstrapped=torch.full((), bool(_np(jd.bootstrapped)),
+                                dtype=torch.bool, device=device))
 
 
 def post_state(jp, device="cpu") -> PostState:

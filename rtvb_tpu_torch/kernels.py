@@ -10,15 +10,21 @@ every module without ``nvcc``.
 Each kernel has a :class:`CudaKernel` handle that checks its tensors,
 launches on PyTorch's current stream, raises on a nonzero
 ``cudaGetLastError()`` and counts its launches (``launches``, a plain int
-incremented once per kernel launch and nowhere else).
+incremented once per kernel launch and nowhere else).  A launch made while
+a CUDA graph is being captured runs nothing: it is recorded into the
+graph's own counts instead (`recording_launches`), and each replay of the
+graph adds them (`add_launches`), so `launch_counts()` reports what the
+card ran.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 import torch
@@ -194,10 +200,38 @@ class CudaKernel:
         if err != 0:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: "
                                f"cudaError {err}")
-        self.launches += 1
+        record = getattr(_CAPTURE, "counts", None)
+        if record is None:
+            self.launches += 1
+        else:
+            record[self] = record.get(self, 0) + 1
 
 
 ALL: dict[str, CudaKernel] = {}
+
+# this thread's graph capture under way: {CudaKernel: launches captured}
+_CAPTURE = threading.local()
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Within: this thread's launches are being captured into a CUDA graph
+    (they run nothing now), so they go to the yielded {CudaKernel: count}
+    and not to the kernels' counts."""
+    prev = getattr(_CAPTURE, "counts", None)
+    counts: dict = {}
+    _CAPTURE.counts = counts
+    try:
+        yield counts
+    finally:
+        _CAPTURE.counts = prev
+
+
+def add_launches(counts: dict) -> None:
+    """Count the launches of one replay of a captured graph (the counts
+    `recording_launches` yielded at its capture)."""
+    for kernel, n in counts.items():
+        kernel.launches += n
 
 
 def register(kernel: CudaKernel) -> CudaKernel:

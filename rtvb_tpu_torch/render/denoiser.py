@@ -1,8 +1,8 @@
 """Denoiser orchestration: the RELAX-style pass chain over G-buffers (port
 of rtvb_tpu/render/denoiser.py).  Pass order: firefly → Poisson pre-pass
 (off by default) → temporal accumulation (bootstrapped on the first
-frame) → history fix → history clamp → à-trous × N (K6) → albedo
-remodulation."""
+frame: a device bool selects, so the frame has no host branch on it) →
+history fix → history clamp → à-trous × N (K6) → albedo remodulation."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -25,7 +25,7 @@ class DenoiserState(NamedTuple):
     hist_len: torch.Tensor      # (H, W)
     prev_depth: torch.Tensor    # (H, W)
     prev_normal: torch.Tensor   # (H, W, 3)
-    bootstrapped: bool          # host flag: history holds a real frame
+    bootstrapped: torch.Tensor  # () bool: history holds a real frame
 
 
 def initial_denoiser_state(h: int, w: int, device="cpu") -> DenoiserState:
@@ -34,7 +34,8 @@ def initial_denoiser_state(h: int, w: int, device="cpu") -> DenoiserState:
         slow=torch.zeros((h, w, 3), **z), fast=torch.zeros((h, w, 3), **z),
         moments=torch.zeros((h, w, 2), **z), hist_len=torch.zeros((h, w), **z),
         prev_depth=torch.full((h, w), BIG, **z),
-        prev_normal=torch.zeros((h, w, 3), **z), bootstrapped=False)
+        prev_normal=torch.zeros((h, w, 3), **z),
+        bootstrapped=torch.zeros((), dtype=torch.bool, device=device))
 
 
 def denoise_frame(g, state: DenoiserState, cfg: DenoisingSettings):
@@ -54,17 +55,18 @@ def denoise_frame(g, state: DenoiserState, cfg: DenoisingSettings):
     moments_in = torch.stack([lum, lum * lum], dim=-1)
 
     if cfg.temporal_accumulation:
-        if state.bootstrapped:
-            slow, fast, moments, hist_len = passes.temporal_accumulate(
-                illum, moments_in, g.motion_u, g.motion_v, depth, normal,
-                state.slow, state.fast, state.moments, state.hist_len,
-                state.prev_depth, state.prev_normal,
-                cfg.max_accumulated_frames, cfg.max_fast_accumulated_frames,
-                cfg.disocclusion_threshold)
-        else:
-            # first frame: the history is empty — bootstrap from this frame
-            slow, fast, moments = illum, illum, moments_in
-            hist_len = torch.ones_like(depth)
+        slow, fast, moments, hist_len = passes.temporal_accumulate(
+            illum, moments_in, g.motion_u, g.motion_v, depth, normal,
+            state.slow, state.fast, state.moments, state.hist_len,
+            state.prev_depth, state.prev_normal,
+            cfg.max_accumulated_frames, cfg.max_fast_accumulated_frames,
+            cfg.disocclusion_threshold)
+        # first frame: the history is empty — bootstrap from this frame
+        boot = state.bootstrapped
+        slow = torch.where(boot, slow, illum)
+        fast = torch.where(boot, fast, illum)
+        moments = torch.where(boot, moments, moments_in)
+        hist_len = torch.where(boot, hist_len, torch.ones_like(hist_len))
     else:
         slow, fast, moments, hist_len = illum, illum, moments_in, \
             torch.ones_like(depth)
@@ -91,5 +93,7 @@ def denoise_frame(g, state: DenoiserState, cfg: DenoisingSettings):
     rgb = torch.where(g.emissive_first[..., None], raw, rgb)
     new_state = DenoiserState(slow=slow, fast=fast, moments=moments,
                               hist_len=hist_len, prev_depth=depth,
-                              prev_normal=normal, bootstrapped=True)
+                              prev_normal=normal,
+                              bootstrapped=torch.ones_like(
+                                  state.bootstrapped))
     return rgb, new_state

@@ -255,14 +255,18 @@ def _picked_face_edges(vrec: HitRecord, p, t_hit, hit_now, cone_spread,
 
 def render_frame(cfg, tables: TraceTables, tp: TraceParams, mats,
                  lights: LightTable, sky, cam: Camera, hist_cam: Camera,
-                 frame_idx: int, width: int, height: int,
+                 frame_idx, width: int, height: int,
                  rs_cfg: RenderingSettings, prev_restir=None,
                  light_remap=None, entities: EntityBuffers | None = None,
                  atlas=None, half_res_gi: bool = False,
                  block_highlight: bool = False):
     """One 1-spp path-traced frame → (GBuffers, new ReSTIRState | None).
-    block_highlight adds the picked block's edge mask (GBuffers.highlight)
-    from the centre pixel's voxel-only primary hit."""
+    frame_idx is a 0-d int64 tensor on the frame's device (a host int is
+    placed there): the RNG, K4 and the ReSTIR taps read it as a tensor,
+    and no host value depends on a device value, so the frame can be
+    captured in a CUDA graph.  block_highlight adds the picked block's
+    edge mask (GBuffers.highlight) from the centre pixel's voxel-only
+    primary hit."""
     use_restir = prev_restir is not None
     H, W = height, width
     dev = cam.pos_x.device
@@ -270,7 +274,7 @@ def render_frame(cfg, tables: TraceTables, tp: TraceParams, mats,
                and rs_cfg.total_bounce_limit > 1)
     px = torch.arange(W, dtype=torch.int64, device=dev)[None, :].expand(H, W)
     py = torch.arange(H, dtype=torch.int64, device=dev)[:, None].expand(H, W)
-    frame_u = int(frame_idx) & 0xFFFFFFFF
+    frame_u = rng.frame_tensor(frame_idx, dev)
 
     bn_full = rng.bn_packed(H, W, 0, device=dev) if rs_cfg.blue_noise \
         else None

@@ -1,6 +1,11 @@
 """Post-processing: auto-exposure → bloom → lens flare → vignette → tone
 map → block highlight → upscale (EASU, K7, below render_scale 1) → RCAS
-sharpen → crosshair → overlay (port of rtvb_tpu/render/postprocess.py)."""
+sharpen → crosshair → overlay (port of rtvb_tpu/render/postprocess.py).
+
+Nothing here reads a device value on the host or uploads host data in the
+frame: the histogram is a fixed 64-bin scatter, `dt` may be a device
+scalar, and the constants (the lens flare's tints, the tone curve's white
+point) are built once outside the frame (`frame_constants`)."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -17,6 +22,30 @@ class PostState(NamedTuple):
     exposure: torch.Tensor     # () adapted log2 exposure
 
 
+class PostConstants(NamedTuple):
+    """Tensors the post chain needs that depend on the settings only."""
+    flare_tints: torch.Tensor | None   # (3, 3): ghosts 1, 2, 3
+    white_curve: torch.Tensor | None   # () Uncharted 2 curve at the white
+
+
+FLARE_TINTS = ((0.35, 0.55, 0.9), (0.9, 0.6, 0.3), (0.8, 0.3, 0.8))
+
+
+def frame_constants(pp: PostProcessingSettings, tm: ToneMappingSettings,
+                    device) -> PostConstants:
+    """The constants of `run` for these settings on `device`, built
+    outside the frame (a host upload each, once)."""
+    tints = None
+    if pp.lens_flare:
+        tints = torch.tensor(FLARE_TINTS, dtype=torch.float32,
+                             device=device)
+    white = None
+    if tm.curve == "uncharted2":
+        white = _uncharted2_curve(torch.tensor(
+            tm.white_point, dtype=torch.float32, device=device))
+    return PostConstants(flare_tints=tints, white_curve=white)
+
+
 def initial_post_state(device="cpu") -> PostState:
     return PostState(exposure=torch.zeros((), dtype=torch.float32,
                                           device=device))
@@ -29,10 +58,22 @@ def _box_down4(img):
     return r * (1.0 / 16.0)
 
 
-def auto_exposure(rgb, state: PostState, cfg: PostProcessingSettings,
-                  dt: float):
+def histogram(bins, nbins: int) -> torch.Tensor:
+    """Counts of the int bins (each already in [0, nbins)) as nbins f32:
+    a scatter into a fixed-size output, where torch.bincount on the card
+    reads the input's maximum back to the host to size its output.  The
+    counts are integers below 2²⁴, so the order of the adds is exact."""
+    flat = bins.reshape(-1).long()
+    return torch.zeros(nbins, dtype=torch.float32, device=bins.device
+                       ).index_add_(0, flat, torch.ones(
+                           flat.shape, dtype=torch.float32,
+                           device=bins.device))
+
+
+def auto_exposure(rgb, state: PostState, cfg: PostProcessingSettings, dt):
     """Histogram of 4×4-pooled log luminance → windowed-percentile mean →
-    exponential adaptation toward mid grey."""
+    exponential adaptation toward mid grey.  dt: seconds, a 0-d f32
+    tensor (the frame's, in device memory) or a host float."""
     h4 = (rgb.shape[0] // 4) * 4
     w4 = (rgb.shape[1] // 4) * 4
     small = _box_down4(rgb[:h4, :w4])
@@ -42,8 +83,7 @@ def auto_exposure(rgb, state: PostState, cfg: PostProcessingSettings,
     nbins = 64
     t = torch.clamp((log_lum - lo) / (hi - lo), 0.0, 1.0)
     bins = torch.clamp((t * nbins).to(torch.int32), 0, nbins - 1)
-    hist = torch.bincount(bins.reshape(-1).long(), minlength=nbins).to(
-        torch.float32)
+    hist = histogram(bins, nbins)
     cdf = torch.cumsum(hist, 0) / torch.clamp(hist.sum(), min=1.0)
     dev = rgb.device
     centers = lo + (torch.arange(nbins, device=dev) + 0.5) / nbins * (hi - lo)
@@ -52,8 +92,9 @@ def auto_exposure(rgb, state: PostState, cfg: PostProcessingSettings,
     w = torch.where(in_win, hist, 0.0)
     avg_log = (w * centers).sum() / torch.clamp(w.sum(), min=1.0)
     target = -avg_log - 1.0
-    adapt = 1.0 - float(torch.exp(torch.tensor(-cfg.exposure_adapt_speed * dt,
-                                               dtype=torch.float32)))
+    if not isinstance(dt, torch.Tensor):
+        dt = torch.full((), dt, dtype=torch.float32, device=dev)
+    adapt = 1.0 - torch.exp(-cfg.exposure_adapt_speed * dt)
     return state.exposure + (target - state.exposure) * adapt
 
 
@@ -84,26 +125,27 @@ def bloom(rgb, cfg: PostProcessingSettings):
     return rgb + cfg.bloom_intensity * up
 
 
-def lens_flare(rgb, cfg: PostProcessingSettings):
+def lens_flare(rgb, cfg: PostProcessingSettings, tints=None):
     """Ghosts + chromatic halo: a centre-mirrored ghost, a half-scale and
     a quarter-scale mirrored ghost pasted at fixed offsets, and a ring per
-    channel driven by the frame's mean flare energy."""
+    channel driven by the frame's mean flare energy.  tints: the (3, 3)
+    ghost tints (`frame_constants`), built here when not given."""
     lum = m.luminance(rgb[..., 0], rgb[..., 1], rgb[..., 2])
     k = torch.clamp(lum - cfg.bloom_threshold * 2.0, min=0.0)
     bright = rgb * k[..., None]
     h, w = rgb.shape[:2]
     dev = rgb.device
 
-    def tint(r, g, b):
-        return torch.tensor([r, g, b], dtype=rgb.dtype, device=dev)
+    if tints is None:
+        tints = torch.tensor(FLARE_TINTS, dtype=rgb.dtype, device=dev)
     # ghost 1: full-size centre mirror, cool
-    ghost1 = torch.flip(bright, (0, 1)) * tint(0.35, 0.55, 0.9)
+    ghost1 = torch.flip(bright, (0, 1)) * tints[0]
     # ghost 2: half-scale, centre-offset, warm
-    g2 = bright[::2, ::2] * tint(0.9, 0.6, 0.3)
+    g2 = bright[::2, ::2] * tints[1]
     ghost2 = torch.zeros_like(rgb)
     ghost2[h // 4: h // 4 + g2.shape[0], w // 4: w // 4 + g2.shape[1]] = g2
     # ghost 3: quarter-scale mirrored (rows h-1, h-5, ...), magenta
-    g3 = torch.flip(bright, (0, 1))[::4, ::4] * tint(0.8, 0.3, 0.8)
+    g3 = torch.flip(bright, (0, 1))[::4, ::4] * tints[2]
     ghost3 = torch.zeros_like(rgb)
     o3y, o3x = (3 * h) // 8, (3 * w) // 8
     ghost3[o3y: o3y + g3.shape[0], o3x: o3x + g3.shape[1]] = g3
@@ -139,21 +181,28 @@ def _aces(x):
     return torch.clamp((x * (a * x + b)) / (x * (c * x + d) + e), 0.0, 1.0)
 
 
-def _uncharted2(x, white: float):
-    def f(v):
-        A, Bc, C, D, E, F = 0.15, 0.50, 0.10, 0.20, 0.02, 0.30
-        return ((v * (A * v + C * Bc) + D * E) / (v * (A * v + Bc) + D * F)) \
-            - E / F
-    fw = f(torch.tensor(white, dtype=torch.float32, device=x.device))
-    return torch.clamp(f(x) / torch.clamp(fw, min=1e-6), 0.0, 1.0)
+def _uncharted2_curve(v):
+    A, Bc, C, D, E, F = 0.15, 0.50, 0.10, 0.20, 0.02, 0.30
+    return ((v * (A * v + C * Bc) + D * E) / (v * (A * v + Bc) + D * F)) \
+        - E / F
 
 
-def tone_map(rgb, tm: ToneMappingSettings, exposure_log2):
+def _uncharted2(x, white: float, fw=None):
+    """fw: the curve at the white point, a 0-d tensor (`frame_constants`),
+    built here when not given."""
+    if fw is None:
+        fw = _uncharted2_curve(torch.tensor(white, dtype=torch.float32,
+                                            device=x.device))
+    return torch.clamp(_uncharted2_curve(x) / torch.clamp(fw, min=1e-6),
+                       0.0, 1.0)
+
+
+def tone_map(rgb, tm: ToneMappingSettings, exposure_log2, white_curve=None):
     x = rgb * torch.exp2(exposure_log2 + tm.exposure_compensation)
     if tm.curve == "aces":
         y = _aces(x)
     elif tm.curve == "uncharted2":
-        y = _uncharted2(x, tm.white_point)
+        y = _uncharted2(x, tm.white_point, white_curve)
     elif tm.curve == "reinhard":
         y = torch.clamp(x / (1.0 + x), 0.0, 1.0)
     else:
@@ -232,8 +281,8 @@ def draw_crosshair(img):
     h, w = img.shape[:2]
     cy, cx = h // 2, w // 2
     img = img.clone()
-    img[cy - 6: cy + 7, cx - 1: cx + 1] = 1.0
-    img[cy - 1: cy + 1, cx - 6: cx + 7] = 1.0
+    img[cy - 6: cy + 7, cx - 1: cx + 1].fill_(1.0)
+    img[cy - 1: cy + 1, cx - 6: cx + 7].fill_(1.0)
     return img
 
 
@@ -244,23 +293,27 @@ def compose_overlay(rgb, overlay_u8):
 
 
 def run(rgb_linear, state: PostState, pp: PostProcessingSettings,
-        tm: ToneMappingSettings, dt: float, out_h: int, out_w: int,
-        overlay_u8=None, highlight=None):
+        tm: ToneMappingSettings, dt, out_h: int, out_w: int,
+        overlay_u8=None, highlight=None, consts: PostConstants | None = None):
     """(H, W, 3) linear HDR → (out_h, out_w, 3) display sRGB in [0, 1].
+    dt: seconds (a 0-d f32 tensor or a host float).
     overlay_u8: optional (out_h, out_w, 4) u8 UI overlay (RGBA).
     highlight: optional (H, W) f32 mask of picked-block edge pixels,
     forced white after tone mapping at the internal size, so the upscale
-    carries it to the output."""
+    carries it to the output.  consts: `frame_constants(pp, tm, …)`; a
+    frame that must not upload host data passes them."""
+    if consts is None:
+        consts = frame_constants(pp, tm, rgb_linear.device)
     exp = auto_exposure(rgb_linear, state, pp, dt) if pp.auto_exposure \
         else state.exposure
     x = rgb_linear
     if pp.bloom:
         x = bloom(x, pp)
     if pp.lens_flare:
-        x = lens_flare(x, pp)
+        x = lens_flare(x, pp, consts.flare_tints)
     if pp.vignette:
         x = vignette(x, pp)
-    y = tone_map(x, tm, exp)
+    y = tone_map(x, tm, exp, consts.white_curve)
     if highlight is not None:
         hl = highlight[..., None]
         y = y * (1.0 - hl) + hl

@@ -2,9 +2,19 @@
 takes the interactive app's calls (port of rtvb_tpu/render/renderer.py).
 
 The frame is the JAX package's `_build_run`: path trace → denoise → post →
-u8, a function of explicit arguments (`_build_run`), with the three
-feedback states (ReSTIR reservoirs, denoiser history, adapted exposure)
-held as tensors on the engine's device and rebound every frame.
+u8, a function of explicit arguments (`_build_run`).  Its per-frame inputs
+(frame index, dt, camera, history camera, light remap) sit in one fixed
+device buffer written from host copies before each frame
+(`frame_graph.FrameInputs`), and the three feedback states (ReSTIR
+reservoirs, denoiser history, adapted exposure) are fixed buffers written
+in place at the end of each frame.  On a CUDA device
+`render_realtime_device` replays a captured CUDA graph of the frame and
+`render_realtime_device_batch(nb)` one of nb frames (the JAX package's
+jitted `_frame_fn` and `lax.scan` `_frame_batch_fn`); the first frame of
+a graph runs eagerly and captures it, and a graph whose tensors were
+replaced (an edit, a sky, settings) is released and captured anew.
+`_eager_frame` runs the captured function eagerly, for code that must see
+the frame's own calls; on the CPU every frame runs so.
 `Engine()` runs the shipped `Settings()`: fused shading (the K4 kernel)
 at native resolution.  `slice_settings()` is the same with the in-line
 shading composition (fused_shading False).  Below render_scale 1 (the
@@ -24,6 +34,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import threading
+import time
 import traceback
 import warnings
 
@@ -39,13 +50,13 @@ from ..assets import image_textures
 from ..assets.decorations import DecorationMeshes
 from ..assets.materials import MaterialRegistry
 from ..assets.textures import TEXTURE_IDS
-from ..core.camera import make_camera
+from ..core.camera import Camera, camera_leaves
 from ..ops.dda import trace, trace_params, trace_tables
 from ..world import gen, lighting, voxel
-from . import pathtracer, postprocess
+from . import frame_graph, pathtracer, postprocess
 from . import restir as restir_mod
 from . import sky as sky_mod
-from .denoiser import denoise_frame, initial_denoiser_state
+from .denoiser import DenoiserState, denoise_frame, initial_denoiser_state
 from .postprocess import PostState
 
 _DATA = os.path.join(os.path.dirname(__file__), "..", "..", "data")
@@ -129,10 +140,12 @@ class Engine:
             self.decor, device=self.device)
         self.sky_state = sky_mod.make_sky_state(self.settings.sky,
                                                 device=self.device)
-        self.camera = self._make_camera(self.scene.camera_pos,
-                                        self.scene.camera_yaw,
-                                        self.scene.camera_pitch)
-        self.history_camera = self.camera
+        # the cameras' leaves on the host; the device copies are views of
+        # the fixed input buffer, written before each frame
+        self._cam_host = self._camera_leaves(self.scene.camera_pos,
+                                             self.scene.camera_yaw,
+                                             self.scene.camera_pitch)
+        self._hist_host = self._cam_host.copy()
 
         self.frame_index = 0
         self.post_state = postprocess.initial_post_state(self.device)
@@ -144,19 +157,115 @@ class Engine:
         self.restir_state = None
         self._identity_remaps: dict[int, torch.Tensor] = {}
         self._light_remap = self._identity_remap()
+        self._remap_host = (self._light_remap, None)
         self._accum = None
         self._accum_n = 0
         self._tp = trace_params(self.cfg, rs.max_trace_steps)
         self._tables = trace_tables(self.world, self.materials)
         self._entity_cache = None
+        self._post_consts = None
+        self._inputs = None
+        self._dt = 1.0 / 60.0
+        self._staged = False
+        # captured frame graphs by the JAX package's key, each valid for
+        # the identity of the tensors it read; capture times, oldest first
+        self._graphs: dict = {}
+        self._graph_identity = None
+        self.graph_log: list = []
+
+    def __copy__(self):
+        """A shallow copy with its own input buffer, feedback states and
+        graphs (the tables and assets stay shared: no frame writes
+        them)."""
+        new = object.__new__(type(self))
+        new.__dict__.update(self.__dict__)
+        new._inputs = None
+        new._staged = False
+        new._graphs = {}
+        new._graph_identity = None
+        new.graph_log = []
+        new._hist_host = self._hist_host.copy()
+        new._cam_host = self._cam_host.copy()
+        if self.restir_state is not None:
+            new.restir_state = restir_mod.ReSTIRState(
+                data=self.restir_state.data.clone())
+        if self.denoiser_state is not None:
+            new.denoiser_state = DenoiserState(
+                *(t.clone() for t in self.denoiser_state))
+        new.post_state = PostState(exposure=self.post_state.exposure.clone())
+        return new
 
     # ------------------------------------------------------------------
+    # the cameras: host leaves, device views written before each frame
+    # ------------------------------------------------------------------
 
-    def _make_camera(self, pos, yaw, pitch):
-        return make_camera(
+    def _camera_leaves(self, pos, yaw, pitch) -> np.ndarray:
+        return camera_leaves(
             pos=pos, yaw=yaw, pitch=pitch,
             fov_y_degrees=self.settings.camera_movement.fov_y_degrees,
-            aspect=self.out_width / self.out_height, device=self.device)
+            aspect=self.out_width / self.out_height)
+
+    @property
+    def camera(self) -> Camera:
+        """The camera: 0-d views of the fixed input buffer (they change in
+        place when the camera moves; clone to keep a value)."""
+        return self._staged_inputs().camera
+
+    @camera.setter
+    def camera(self, cam: Camera):
+        self._cam_host = np.array([float(v) for v in cam], np.float32)
+        self._staged = False
+
+    @property
+    def history_camera(self) -> Camera:
+        """The camera the previous frame saw (views, as `camera`)."""
+        return self._staged_inputs().history_camera
+
+    @history_camera.setter
+    def history_camera(self, cam: Camera):
+        self._hist_host = np.array([float(v) for v in cam], np.float32)
+        self._staged = False
+
+    def camera_pose(self):
+        """((x, y, z), yaw, pitch) of the camera, from the host copy."""
+        c = self._cam_host
+        return (float(c[0]), float(c[1]), float(c[2])), float(c[3]), \
+            float(c[4])
+
+    # ------------------------------------------------------------------
+    # the per-frame input buffer
+    # ------------------------------------------------------------------
+
+    def _remap_words(self) -> int:
+        """Slots of the input buffer's remap: every slot a stored
+        reservoir of this table or the previous one can name."""
+        return max(lighting.MAX_LIGHT_TRIS, self.lights.key.shape[0],
+                   self._light_remap.shape[0])
+
+    def _remap_np(self):
+        """The pending light remap on the host (None: the identity)."""
+        r = self._light_remap
+        if r is self._identity_remap():
+            return None
+        if self._remap_host[0] is not r:
+            self._remap_host = (r, r.cpu().numpy())
+        return self._remap_host[1]
+
+    def _stage(self, dt: float | None = None) -> frame_graph.FrameInputs:
+        """Write the frame index, dt, the cameras and the remap into the
+        fixed input buffer (on the current stream)."""
+        if dt is not None:
+            self._dt = float(dt)
+        n = self._remap_words()
+        if self._inputs is None or self._inputs.n_remap != n:
+            self._inputs = frame_graph.FrameInputs(self.device, n)
+        self._inputs.write(self.frame_index, self._dt, self._cam_host,
+                           self._hist_host, self._remap_np())
+        self._staged = True
+        return self._inputs
+
+    def _staged_inputs(self) -> frame_graph.FrameInputs:
+        return self._inputs if self._staged else self._stage()
 
     def _internal_size(self, scale: float) -> tuple[int, int]:
         """Internal render size = output × scale, rounded to even pixels
@@ -190,6 +299,7 @@ class Engine:
         if settings == old:
             return
         self.settings = settings
+        self.release_graphs()
         if settings.sky != old.sky:
             self.set_sky(**{f.name: getattr(settings.sky, f.name)
                             for f in dataclasses.fields(settings.sky)
@@ -214,8 +324,8 @@ class Engine:
         self.sky_state = sky_mod.make_sky_state(self.settings.sky,
                                                 device=self.device)
         if self.restir_state is not None:
-            self.restir_state = restir_mod.initial_state(
-                self.height, self.width, device=self.device)
+            self.restir_state.data.copy_(restir_mod.initial_state(
+                self.height, self.width, device=self.device).data)
 
     def set_ui_overlay(self, rgba_u8) -> None:
         """Upload a host-rastered (out_h, out_w, 4) u8 RGBA overlay that
@@ -239,14 +349,17 @@ class Engine:
             if self.lights.count > 0 else 0
 
     def set_camera(self, pos=None, yaw=None, pitch=None, keep_history=False):
+        """Move the camera (None keeps a value; read from the host copy,
+        never from the device); the history camera takes the old pose
+        unless keep_history."""
         if not keep_history:
-            self.history_camera = self.camera
-        cam = self.camera
-        self.camera = self._make_camera(
-            pos if pos is not None else (float(cam.pos_x), float(cam.pos_y),
-                                         float(cam.pos_z)),
-            yaw if yaw is not None else float(cam.yaw),
-            pitch if pitch is not None else float(cam.pitch))
+            self._hist_host = self._cam_host.copy()
+        old_pos, old_yaw, old_pitch = self.camera_pose()
+        self._cam_host = self._camera_leaves(
+            pos if pos is not None else old_pos,
+            yaw if yaw is not None else old_yaw,
+            pitch if pitch is not None else old_pitch)
+        self._staged = False
 
     # ------------------------------------------------------------------
     # world edits and the pick
@@ -298,6 +411,8 @@ class Engine:
             self.decor, device=self.device)
         remap = lighting.light_id_remap(prev_lights, self.lights)
         self._light_remap = remap     # consumed by the next frame
+        self._remap_host = (remap, remap.cpu().numpy())
+        self._staged = False
         self._tp = trace_params(self.cfg, self._tp.max_steps)
         self._tables = trace_tables(self.world, self.materials)
         self._entity_cache = None
@@ -408,12 +523,28 @@ class Engine:
     # ------------------------------------------------------------------
 
     def _ensure_states(self):
-        if self.settings.rendering.use_restir and self.restir_state is None:
+        """Allocate the feedback states that are missing or of another
+        size: the fixed buffers the frames write in place."""
+        H, W = self.height, self.width
+        if self.settings.rendering.use_restir and (
+                self.restir_state is None
+                or tuple(self.restir_state.data.shape[1:]) != (H, W)):
             self.restir_state = restir_mod.initial_state(
-                self.height, self.width, device=self.device)
-        if self.denoiser_state is None:
+                H, W, device=self.device)
+        if self.denoiser_state is None \
+                or tuple(self.denoiser_state.hist_len.shape) != (H, W):
             self.denoiser_state = initial_denoiser_state(
-                self.height, self.width, device=self.device)
+                H, W, device=self.device)
+
+    def _write_states(self, restir=None, dstate=None, pstate=None):
+        """Write new feedback states into the engine's fixed buffers."""
+        if restir is not None and restir is not self.restir_state:
+            self.restir_state.data.copy_(restir.data)
+        if dstate is not None and dstate is not self.denoiser_state:
+            for dst, src in zip(self.denoiser_state, dstate):
+                dst.copy_(src)
+        if pstate is not None and pstate is not self.post_state:
+            self.post_state.exposure.copy_(pstate.exposure)
 
     def _trace_fn(self, n_local: int, half_res_gi: bool,
                   block_highlight: bool):
@@ -435,14 +566,24 @@ class Engine:
                 half_res_gi=half_res_gi, block_highlight=block_highlight)
         return run
 
+    def _frame_constants(self) -> postprocess.PostConstants:
+        """The post chain's constants for the current settings, built once
+        outside the frame."""
+        st = self.settings
+        key = (st.post_processing, st.tone_mapping)
+        if self._post_consts is None or self._post_consts[0] != key:
+            self._post_consts = (key, postprocess.frame_constants(
+                st.post_processing, st.tone_mapping, self.device))
+        return self._post_consts[1]
+
     def _build_run(self, n_local_override: int | None = None):
         """The whole frame (path trace → denoise → post → u8) as a
         function of explicit arguments, the engine's static configuration
         bound now: run(tables, mats, lights, sky, cam, hist_cam,
         frame_idx, prev_restir, light_remap, dstate, post_state, dt, ent,
         atlas, overlay) → (u8, new_restir, new_dstate, new_post_state).
-        The stages are profiler ranges (STAGES); outside a profiler they
-        cost a few µs."""
+        frame_idx and dt are 0-d device tensors.  The stages are profiler
+        ranges (STAGES); outside a profiler they cost a few µs."""
         n_local = self._n_local if n_local_override is None \
             else n_local_override
         rs = self.settings.rendering
@@ -451,6 +592,7 @@ class Engine:
         pp = self.settings.post_processing
         tm = self.settings.tone_mapping
         out_h, out_w = self.out_height, self.out_width
+        consts = self._frame_constants()
 
         def run(tables, mats, lights, sky_state, cam, hist_cam, frame_idx,
                 prev_restir, light_remap, dstate, post_state, dt, ent,
@@ -465,16 +607,17 @@ class Engine:
             with record_function("rtvb.post"):
                 out, new_pstate = postprocess.run(
                     rgb, post_state, pp, tm, dt, out_h, out_w,
-                    overlay_u8=overlay, highlight=g.highlight)
+                    overlay_u8=overlay, highlight=g.highlight, consts=consts)
                 out_u8 = (torch.clamp(out, 0.0, 1.0) * 255.0 + 0.5).to(
                     torch.uint8)
             return out_u8, new_restir, new_dstate, new_pstate
         return run
 
     def _trace_inputs(self):
+        inp = self._stage()
         return (self._tables, self.materials, self.lights, self.sky_state,
-                self.camera, self.history_camera, self.frame_index,
-                self.restir_state, self._light_remap)
+                inp.camera, inp.history_camera, inp.frame,
+                self.restir_state, inp.remap)
 
     def render_gbuffers(self):
         """Path trace one frame of the real-time path from the current
@@ -484,21 +627,132 @@ class Engine:
                               rs.block_highlight)(
             *self._trace_inputs(), self.entity_buffers(), self.texture_atlas)
 
+    # ------------------------------------------------------------------
+    # the real-time frame: eager, or replayed from a captured graph
+    # ------------------------------------------------------------------
+
+    def _frame_body(self, nb: int, run):
+        """nb frames from the fixed buffers — frame k at frame index
+        frame + k, frame 0 with the history camera and frames 1… with the
+        camera as their history, every frame with the same dt and remap,
+        each frame's states feeding the next — then the last frame's
+        states written into the fixed state buffers.  Returns the u8 frame
+        (nb 1) or the (nb, h, w, 3) stack.  This is the function a graph
+        captures; `_eager_frame` runs it as it is."""
+        inp = self._inputs
+        restir, dstate, pstate = (self.restir_state, self.denoiser_state,
+                                  self.post_state)
+        ent, atlas = self.entity_buffers(), self.texture_atlas
+        outs = []
+        for k in range(nb):
+            hist = inp.history_camera if k == 0 else inp.camera
+            frame = inp.frame if k == 0 else inp.frame + k
+            u8, new_restir, dstate, pstate = run(
+                self._tables, self.materials, self.lights, self.sky_state,
+                inp.camera, hist, frame, restir, inp.remap, dstate, pstate,
+                inp.dt, ent, atlas, self._ui_overlay)
+            if new_restir is not None:
+                restir = new_restir
+            outs.append(u8)
+        self._write_states(restir, dstate, pstate)
+        return outs[0] if nb == 1 else torch.stack(outs)
+
+    def _advance(self, nb: int):
+        """The host side of nb frames: the remap consumed, the frame index
+        advanced, the history camera the camera."""
+        self._light_remap = self._identity_remap()
+        self.frame_index += nb
+        self._hist_host = self._cam_host.copy()
+        self._staged = False
+
+    def _frames(self, nb: int, dt: float, graph: bool) -> torch.Tensor:
+        self._ensure_states()
+        self._stage(dt)
+        if graph:
+            out = self._graph_frames(nb)
+        else:
+            out = self._frame_body(nb, self._build_run())
+        self._advance(nb)
+        return out
+
+    def _eager_frame(self, dt: float = 1.0 / 60.0) -> torch.Tensor:
+        """One frame run eagerly, op by op: the function the graphs
+        capture, for code that has to see the frame's own calls (hooks,
+        profiles, tests).  Advances the engine like render_realtime_device
+        and returns its u8 frame."""
+        return self._frames(1, dt, graph=False)
+
+    def _graph_inputs(self) -> tuple:
+        """What a captured frame reads or writes by address (and the
+        values its launches took)."""
+        return (self._tables, self.materials, self.lights, self.sky_state,
+                self.texture_atlas, self.entity_buffers(), self._ui_overlay,
+                self._frame_constants(), self.restir_state,
+                self.denoiser_state, self.post_state, self._inputs.words)
+
+    def release_graphs(self):
+        """Release every captured graph (its memory pool goes with it)."""
+        for g in self._graphs.values():
+            g.release()
+        self._graphs = {}
+        self._graph_identity = None
+
+    def _graph_frames(self, nb: int) -> torch.Tensor:
+        """nb frames by a captured graph, keyed as the JAX package keys
+        its jitted frame functions; the graphs are dropped when any tensor
+        they read was replaced.  A key's first call runs its frames
+        eagerly (on a side stream, as capture asks), then captures."""
+        use_restir = self.settings.rendering.use_restir
+        key = ("frame" if nb == 1 else ("frame_batch", nb), self.width,
+               self.height, self.out_width, self.out_height, use_restir,
+               self._n_local)
+        ident = (frame_graph.identity(self._graph_inputs()), self.settings,
+                 self.cfg, self._tp)
+        if ident != self._graph_identity:
+            self.release_graphs()
+            self._graph_identity = ident
+        g = self._graphs.get(key)
+        if g is not None:
+            return g.replay().clone()
+        run = self._build_run()
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        t0 = time.perf_counter()
+        with torch.cuda.stream(side):
+            out = self._frame_body(nb, run)
+        cur.wait_stream(side)
+        out.record_stream(cur)
+        torch.cuda.synchronize(self.device)
+        eager_ms = (time.perf_counter() - t0) * 1e3
+        g = frame_graph.capture(lambda: self._frame_body(nb, run),
+                                frame_graph.tensors(self._graph_inputs()))
+        self._graphs[key] = g
+        self.graph_log.append(dict(key=key, eager_ms=eager_ms,
+                                   capture_ms=g.capture_ms))
+        return out
+
     def render_realtime_device(self, dt: float = 1.0 / 60.0) -> torch.Tensor:
         """One interactive frame: 1 spp + denoiser + post, with the UI
         overlay.  Returns the (out_h, out_w, 3) u8 frame on the engine's
-        device; consumes the light remap of an edit."""
-        self._ensure_states()
-        out_u8, new_restir, self.denoiser_state, self.post_state = \
-            self._build_run()(*self._trace_inputs(), self.denoiser_state,
-                              self.post_state, dt, self.entity_buffers(),
-                              self.texture_atlas, self._ui_overlay)
-        if new_restir is not None:
-            self.restir_state = new_restir
-        self._light_remap = self._identity_remap()
-        self.frame_index += 1
-        self.history_camera = self.camera
-        return out_u8
+        device; consumes the light remap of an edit.  On a CUDA device a
+        replay of the captured frame."""
+        return self._frames(1, dt, graph=self.device.type == "cuda")
+
+    def render_realtime_device_batch(self, nb: int,
+                                     dt: float = 1.0 / 60.0) -> torch.Tensor:
+        """nb frames in one call (the JAX package's `lax.scan` batch):
+        frame k at frame_index + k, frame 0 with the history camera and
+        the rest with the camera as their history, every frame with the
+        same dt and the same light remap.  Returns the device-resident
+        (nb, out_h, out_w, 3) u8 stack; afterwards the frame index has
+        grown by nb, the history camera is the camera and the remap is the
+        identity.  On a CUDA device one replay of a graph of nb frames; on
+        the CPU the same function, eagerly."""
+        if nb < 1:
+            raise ValueError(f"nb must be at least 1, got {nb}")
+        out = self._frames(nb, dt, graph=self.device.type == "cuda")
+        return out[None] if nb == 1 else out
 
     def render_realtime(self, dt: float = 1.0 / 60.0) -> np.ndarray:
         """Like render_realtime_device, fetched to a host numpy array."""
@@ -507,24 +761,29 @@ class Engine:
     def warm_light_variant_async(self):
         """Run one throwaway frame of the lights-on variant (the
         configured local-light candidates in place of 0) in a background
-        thread, on its own CUDA stream with throwaway feedback states, so
-        that the first lit frame finds K4's lit instances loaded (CUDA
-        loads a kernel's module at its first launch).  Returns the
-        Thread, or None when the variant is already live or the engine
-        has not rendered yet.  The live states are not touched."""
+        thread, on its own CUDA stream with throwaway feedback states and
+        copies of the per-frame inputs, so that the first lit frame finds
+        K4's lit instances loaded (CUDA loads a kernel's module at its
+        first launch).  Returns the Thread, or None when the variant is
+        already live or the engine has not rendered yet.  The live states
+        are not touched."""
         n_local = self.settings.rendering.local_light_candidates
         if self._n_local == n_local or self.restir_state is None \
                 or self.denoiser_state is None:
             return None
         run = self._build_run(n_local_override=n_local)
-        args = (*self._trace_inputs()[:7],
+        inp = self._staged_inputs()
+        cam = Camera(*(t.clone() for t in inp.camera))
+        hist = Camera(*(t.clone() for t in inp.history_camera))
+        args = (self._tables, self.materials, self.lights, self.sky_state,
+                cam, hist, inp.frame.clone(),
                 restir_mod.initial_state(self.height, self.width,
                                          device=self.device),
-                self._light_remap,
+                inp.remap.clone(),
                 initial_denoiser_state(self.height, self.width,
                                        device=self.device),
                 PostState(exposure=self.post_state.exposure.clone()),
-                1.0 / 60.0, self.entity_buffers(), self.texture_atlas,
+                inp.dt.clone(), self.entity_buffers(), self.texture_atlas,
                 self._ui_overlay)
         stream = None
         if self.device.type == "cuda":
@@ -560,10 +819,10 @@ class Engine:
                 self.height, self.width, device=self.device)
         g, new_restir = self._trace_fn(self._n_local, False, False)(
             *self._trace_inputs(), self.entity_buffers(), self.texture_atlas)
-        if new_restir is not None:
-            self.restir_state = new_restir
+        self._write_states(restir=new_restir)
         self._light_remap = self._identity_remap()
         self.frame_index += 1
+        self._staged = False
         return g
 
     def render_accumulated(self, dt: float = 1.0 / 60.0) -> np.ndarray:
@@ -579,9 +838,11 @@ class Engine:
             self._accum_n += 1
             self._accum = self._accum + (rgb - self._accum) / self._accum_n
         st = self.settings
-        out, self.post_state = postprocess.run(
+        out, pstate = postprocess.run(
             self._accum, self.post_state, st.post_processing, st.tone_mapping,
-            dt, self.out_height, self.out_width)
+            dt, self.out_height, self.out_width,
+            consts=self._frame_constants())
+        self._write_states(pstate=pstate)
         return out.cpu().numpy()
 
     def reset_accumulation(self):

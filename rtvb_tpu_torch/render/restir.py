@@ -18,6 +18,7 @@ from ..ops.alias_table import take
 from ..ops.dda import BIG
 from ..ops.pack import octa_decode, octa_encode, pack2, pack_int, unpack2, \
     unpack_int
+from ..ops.rng import frame_tensor
 from ..ops.warp_kernel import warp_nearest
 from ..world.lighting import light_radiance, reconstruct_light_point
 
@@ -46,13 +47,14 @@ def pack_state(kind, slot, fa, fb, dir3, W, M, depth, n3, le) -> ReSTIRState:
 
 def initial_state(h: int, w: int, device="cpu") -> ReSTIRState:
     data = torch.zeros((8, h, w), dtype=torch.float32, device=device)
-    data[5] = BIG
+    data[5].fill_(BIG)
     return ReSTIRState(data=data)
 
 
-def shift_clamped(arr, dy: int, dx: int, axes):
-    """out[y, x] = arr[clamp(y - dy), clamp(x - dx)] along `axes` (static
-    offsets; the edge-clamped roll of the JAX package's _shift_dyn)."""
+def shift_clamped(arr, dy, dx, axes):
+    """out[y, x] = arr[clamp(y - dy), clamp(x - dx)] along `axes`: the
+    edge-clamped roll of the JAX package's _shift_dyn.  The offsets are
+    0-d int64 tensors on arr's device (or host ints)."""
     ay, ax = axes
     H, W = arr.shape[ay], arr.shape[ax]
     dev = arr.device
@@ -87,10 +89,23 @@ def target_pdf(mat, n, wo, wi, le):
     return f_lum * cos_i * m.luminance(le)
 
 
-def warp_taps(prev: ReSTIRState, motion_u, motion_v, frame_idx: int,
+def tap_offsets(frame_idx, n_taps: int) -> list:
+    """The frame-varying integer offsets of taps 1+ (dy, dx of tap t at
+    2(t-1), 2(t-1)+1), each in [-2, 2]: 0-d int64 tensors computed from
+    the device frame index (0-d int64 tensor), as the JAX package traces
+    them."""
+    primes = (2, 3, 5, 7, 11, 13, 17, 19)
+    fi = frame_idx.to(torch.int64)
+    return [((fi * primes[i % len(primes)] + (i + 1)) % 5 - 2)
+            * (-1 if i % 3 == 2 else 1)
+            for i in range(2 * max(n_taps - 1, 0) + 2)]
+
+
+def warp_taps(prev: ReSTIRState, motion_u, motion_v, frame_idx,
               n_taps: int):
     """Warped previous-reservoir fetches: tap 0 is the nearest
-    reprojection (K5), taps 1+ edge-clamped frame-varying offsets of it.
+    reprojection (K5), taps 1+ edge-clamped frame-varying offsets of it
+    (`tap_offsets`; frame_idx a 0-d int64 tensor or a host int).
     Returns [(planes (8, H, W), valid (H, W) bool)]."""
     H, W_img = motion_u.shape
     dev = motion_u.device
@@ -106,11 +121,8 @@ def warp_taps(prev: ReSTIRState, motion_u, motion_v, frame_idx: int,
     got0, wvalid = warp_nearest(prev.data, sy, sx)
     valid0 = inb0 & wvalid
 
-    primes = (2, 3, 5, 7, 11, 13, 17, 19)
-    fi = int(frame_idx)
-    offs = [((fi * primes[i % len(primes)] + i + 1) % 5 - 2)
-            * (-1 if i % 3 == 2 else 1)
-            for i in range(2 * max(n_taps - 1, 0) + 2)]
+    if n_taps > 1:
+        offs = tap_offsets(frame_tensor(frame_idx, dev), n_taps)
     taps = [(got0, valid0)]
     for t in range(1, n_taps):
         dy, dx = offs[2 * (t - 1)], offs[2 * (t - 1) + 1]
@@ -124,7 +136,7 @@ def warp_taps(prev: ReSTIRState, motion_u, motion_v, frame_idx: int,
 def temporal_combine(cur_kind, cur_slot, cur_face, cur_fa, cur_fb, cur_dir,
                      cur_dist, cur_le, cur_wsum, cur_phat,
                      prev: ReSTIRState, motion_u, motion_v, depth, n, p, wo,
-                     mat, lights, remap, u_takes, frame_idx: int = 0,
+                     mat, lights, remap, u_takes, frame_idx=0,
                      n_taps: int = 3, disocclusion_threshold: float = 0.2):
     """Merge the current RIS reservoir with n_taps reprojected previous
     reservoirs (GRIS with confidence weights, M-cap 20).  Returns

@@ -169,7 +169,7 @@ def fused_shade_plain(cfg: ShadeConfig, frame_idx, y0, sf, lf, li, envf,
     mat = B.Material(albedo_r=alb[0], albedo_g=alb[1], albedo_b=alb[2],
                      roughness=rough, metallic=metal, translucency=trans)
     rcp = lambda x: 1.0 / x
-    frame_u = int(frame_idx) & rng.M32
+    frame_u = rng.frame_tensor(frame_idx, dev)
 
     lgf = lambda row, slot: take(lf[row], slot)
     lgi = lambda row, slot: take(li[row], slot)
@@ -386,9 +386,9 @@ def fused_shade_plain(cfg: ShadeConfig, frame_idx, y0, sf, lf, li, envf,
 
 _PTRS = ctypes.POINTER(ctypes.c_void_p)
 SHADE = K.register(K.CudaKernel(
-    "shade", "rtvb_shade_tab",
+    "shade", "rtvb_shade_dev",
     [_PTRS, K.I, _PTRS, _PTRS, K.P, K.P, K.P, K.P, K.P, K.P]
-    + [K.I] * 3 + [ctypes.c_uint32] + [K.I] * 6 + [K.F, K.F, K.P]))
+    + [K.I] * 3 + [K.P] + [K.I] * 6 + [K.F, K.F, K.P]))
 
 
 # the form K4 takes the sine and cosine of one angle in (one sincosf);
@@ -424,7 +424,10 @@ def fused_shade_cuda(cfg: ShadeConfig, frame_idx, y0, sf, lf, li, envf,
                      envi, p, n, wo, alb, rough, metal, trans, depth=None,
                      taps=(), bn=None) -> ShadeOut:
     """Launch K4 on the current stream: every input checked, outputs
-    allocated here (one (4, H, W) i32 and one (22, H, W) f32 tensor)."""
+    allocated here (one (4, H, W) i32 and one (22, H, W) f32 tensor).
+    The frame index reaches the kernel from device memory (a 0-d int64
+    tensor; a host int is placed there first), so a captured graph
+    replays with each frame's own index."""
     H, W = p[0].shape
     dev = p[0].device
     K_ = cfg.k_slots
@@ -459,6 +462,11 @@ def fused_shade_cuda(cfg: ShadeConfig, frame_idx, y0, sf, lf, li, envf,
                     for c in range(8)]
             ins.append(K.as_input(f"tap{t}.valid", tv, i32, (H, W), dev))
     basis = rng.bn_basis(dev)
+    # the kernel reads the low 32 bits of an int64 frame index
+    if not (isinstance(frame_idx, torch.Tensor)
+            and frame_idx.dtype == torch.int64):
+        frame_idx = rng.frame_tensor(frame_idx, dev)
+    frame = K.as_input("frame", frame_idx, torch.int64, (), dev)
     if cfg.blue_noise:
         if bn is None or len(bn) != 4:
             raise ValueError("blue_noise needs the four bn byte planes")
@@ -467,12 +475,12 @@ def fused_shade_cuda(cfg: ShadeConfig, frame_idx, y0, sf, lf, li, envf,
     out_i = torch.empty((len(OUT_I32), H, W), dtype=i32, device=dev)
     out_f = torch.empty((N_OUT - len(OUT_I32), H, W), dtype=f32, device=dev)
     # room for the input planes' pointers, which the generic instance reads
-    # from device memory (the kernel copies them in on the stream)
+    # from device memory (a kernel on the stream writes them there)
     in_tab = torch.empty(len(ins), dtype=torch.int64, device=dev)
     SHADE.launch(dev, _ptr_array(ins), len(ins),
                  _ptr_array(list(out_f)), _ptr_array(list(out_i)),
                  sf, lf, li, envf, envi, basis, H, W, int(y0),
-                 int(frame_idx) & rng.M32, K_, cfg.n_local, cfg.n_taps,
+                 frame, K_, cfg.n_local, cfg.n_taps,
                  cfg.base_dim, int(cfg.ent_unreachable), int(cfg.blue_noise),
                  float(cfg.m_cap), float(cfg.dis_thr), in_tab)
     it_i, it_f = iter(out_i), iter(out_f)

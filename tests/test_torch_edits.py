@@ -197,7 +197,9 @@ def test_light_id_remap_tracks_edit(lantern_edits):
 
 def test_frame_consumes_the_remap():
     """An edit's remap feeds the next frame, which then resets it to the
-    identity, as the JAX engine does after each frame."""
+    identity, as the JAX engine does after each frame.  The frame reads it
+    from the engine's fixed input buffer: the remap's slots, then the
+    identity (past the remap's slots no stored reservoir points)."""
     st = _settings().replace(rendering={"render_width": 16,
                                         "render_height": 16})
     pe = Engine(settings=st, device="cpu")
@@ -218,7 +220,10 @@ def test_frame_consumes_the_remap():
         pe.render_realtime()
     finally:
         pathtracer.render_frame = orig
-    assert seen[0] is remap
+    n = remap.shape[0]
+    assert torch.equal(seen[0][:n], remap)
+    assert torch.equal(seen[0][n:], torch.arange(n, seen[0].shape[0],
+                                                 dtype=torch.int32))
     assert torch.equal(pe._light_remap,
                        torch.arange(pe.lights.key.shape[0],
                                     dtype=torch.int32))

@@ -146,12 +146,16 @@ def accumulated():
     for _ in range(3):
         pe = interop.engine_from_jax(je, Engine(settings=_settings(),
                                                 device="cpu"))
-        hist = pe.history_camera
+        hist = tuple(c.clone() for c in pe.history_camera)
         ref = je.render_accumulated()
         got = pe.render_accumulated()
+        # the history camera is a view of the engine's input buffer: its
+        # values are what path_trace must keep
+        kept = all(torch.equal(a, b)
+                   for a, b in zip(hist, pe.history_camera))
         out.append(dict(ref=ref, got=got, n=(je._accum_n, pe._accum_n),
                         frame=(je.frame_index, pe.frame_index),
-                        hist_kept=pe.history_camera is hist, port=pe))
+                        hist_kept=kept, port=pe))
     return je, out
 
 
@@ -204,7 +208,8 @@ def _snapshot(eng):
                           for f in eng.denoiser_state._fields},
                 exposure=eng.post_state.exposure.clone(),
                 frame=eng.frame_index, remap=eng._light_remap.clone(),
-                camera=tuple(eng.camera), hist=tuple(eng.history_camera),
+                camera=tuple(c.clone() for c in eng.camera),
+                hist=tuple(c.clone() for c in eng.history_camera),
                 lights=eng.lights.key.clone())
 
 
@@ -238,7 +243,7 @@ def test_warm_light_variant_leaves_live_states():
         elif isinstance(v, torch.Tensor):
             assert torch.equal(v, after[k]), k
         elif k in ("camera", "hist"):
-            assert all(a is b for a, b in zip(v, after[k])), k
+            assert all(torch.equal(a, b) for a, b in zip(v, after[k])), k
         else:
             assert v == after[k], k
     # then the first lit frame renders

@@ -34,7 +34,12 @@ candidates and 3 taps at bounce 0, 2 and 0 at bounces 1-2) on a lit
 frame's own calls, with blue and white noise; pick_block on the card
 (one K1 launch on one ray) equal to the CPU's; a lantern, a bulk edit
 that grows the exception list and the dev-panel settings in frames on
-the card, K1 to the bit on the grown list."""
+the card, K1 to the bit on the grown list.  The frame as a CUDA graph
+at 320×180 (chip_smoke's graph checks): the 8-frame batch against eager
+frames of a copy, bit for bit, natively and at the 1/2 rung; one-frame
+replays along the flythrough and after an edit; K4's generic instance
+replayed; launch counts under replay; graph memory flat over 20 edits;
+a new capture after each call that replaces what a graph reads."""
 import numpy as np
 import pytest
 import torch
@@ -696,3 +701,87 @@ def test_engine_gameplay_edits_on_card(cuda):
         out = eng.render_realtime_device()
     u8 = out.cpu().numpy()
     assert u8.shape == (90, 160, 3) and (u8[45, 79:81] == 255).all()
+
+
+# ---------------------------------------------------------------------------
+# the frame as a CUDA graph (chip_smoke's graph phase at 320×180)
+# ---------------------------------------------------------------------------
+
+def _graph_settings(**rendering):
+    from rtvb_tpu_torch.core.config import Settings
+    return Settings().replace(rendering=dict(
+        render_width=320, render_height=180, **rendering))
+
+
+@pytest.mark.parametrize("scale", [1.0, 0.5])
+def test_graph_batch_matches_eager_frames(cuda, scale):
+    import chip_smoke
+    K.reset_launch_counts()
+    got = chip_smoke.graph_batch_vs_eager(_graph_settings(
+        render_scale=scale))
+    assert got["batch 2"] == "bit-exact"
+    assert (K.launch_counts()["easu"] > 0) == (scale < 1.0)
+
+
+def test_graph_replay_along_flythrough_and_after_edit(cuda):
+    import chip_smoke
+    got = chip_smoke.graph_flythrough_vs_eager(_graph_settings())
+    assert got["frames"] == 10 and len(got["graph_log"]) == 2
+
+
+def test_graph_replay_k4_generic_instance(cuda):
+    import chip_smoke
+    chip_smoke.graph_widened_vs_eager(_graph_settings())
+
+
+def test_graph_launch_counts_equal_eager(cuda):
+    import chip_smoke
+    from rtvb_tpu_torch.render.renderer import Engine
+    eng = Engine(settings=_graph_settings(), device=cuda)
+    eng.render_realtime_device()
+    got = chip_smoke.graph_launch_counts(eng, K)
+    assert got["replay"]["atrous"] == 4 * 3
+
+
+def test_graph_memory_flat_over_edits(cuda):
+    import chip_smoke
+    from rtvb_tpu_torch.render.renderer import Engine
+    eng = Engine(settings=_graph_settings(), device=cuda)
+    chip_smoke.graph_memory_cycles(eng, 20)
+    assert len(eng.graph_log) == 20
+
+
+@pytest.mark.parametrize("change", ["set_block", "set_sky", "apply_settings",
+                                    "set_render_scale", "set_ui_overlay"])
+def test_graph_recaptured_after_a_change(cuda, change):
+    """Each call that replaces a tensor the graph reads: the next frame
+    captures anew (the stale graph is released, never replayed) and the
+    replays after it equal eager frames of a copy, bit for bit."""
+    import copy
+
+    import chip_smoke
+    from rtvb_tpu_torch.assets import blocks as B
+    from rtvb_tpu_torch.render.renderer import Engine
+    eng = Engine(settings=_graph_settings(), device=cuda)
+    eng.render_realtime_device()
+    ref = copy.copy(eng)
+    ov = np.zeros((180, 320, 4), np.uint8)
+    ov[10:30, 20:90] = (200, 40, 40, 200)
+    for e in (eng, ref):
+        if change == "set_block":
+            e.set_block(30, 25, 30, B.BRICK)
+        elif change == "set_sky":
+            e.set_sky(time_of_day=8.0)
+        elif change == "apply_settings":
+            e.apply_settings(e.settings.replace(
+                post_processing={"lens_flare": True}))
+        elif change == "set_render_scale":
+            e.set_render_scale(2.0 / 3.0)
+        else:
+            e.set_ui_overlay(ov)
+    n = len(eng.graph_log)
+    for i in range(3):
+        chip_smoke.frames_equal(eng.render_realtime_device(),
+                                ref._eager_frame(), f"{change} frame {i}")
+        chip_smoke.states_equal(eng, ref, f"{change} frame {i}")
+    assert len(eng.graph_log) == n + 1 and len(eng._graphs) == 1
