@@ -2,9 +2,8 @@
 rtvb_tpu/assets/decorations.py.
 
 The procedural meshes, the builtin model table and the model registry are
-the port's own copies of the JAX package's (same names and geometry); the
-OBJ path is a geometry-only reader here (`load_obj_triangles`), in place
-of the JAX package's `assets/models.load_obj`.
+the port's own copies of the JAX package's (same names and geometry); a
+mesh file is read by the port's `assets/models.load_obj`.
 """
 from __future__ import annotations
 
@@ -167,26 +166,6 @@ def registry() -> ModelRegistry:
     return _registry
 
 
-def load_obj_triangles(path: str):
-    """Positions of an OBJ's faces (fan-triangulated) as (v0, v1, v2) float32
-    arrays — the geometry part of the JAX package's load_obj."""
-    vs, tris = [], []
-    with open(path) as f:
-        for line in f:
-            t = line.split()
-            if not t:
-                continue
-            if t[0] == "v":
-                vs.append(tuple(float(x) for x in t[1:4]))
-            elif t[0] == "f":
-                ids = [int(s.split("/")[0]) - 1 for s in t[1:]]
-                for k in range(1, len(ids) - 1):
-                    tris.append((ids[0], ids[k], ids[k + 1]))
-    pos = np.array(vs, np.float32)
-    idx = np.array(tris, np.int64).reshape(-1, 3)
-    return pos[idx[:, 0]], pos[idx[:, 1]], pos[idx[:, 2]]
-
-
 class DecorationMeshes:
     """Resolved base / light meshes per decoration name (cached)."""
 
@@ -209,7 +188,11 @@ class DecorationMeshes:
             if path:
                 full = os.path.join(_REPO_ROOT, path)
                 if os.path.exists(full) and full.endswith(".obj"):
-                    mesh = load_obj_triangles(full)
+                    from .models import load_obj
+                    md = load_obj(full)
+                    idx = md.indices
+                    mesh = tuple(md.positions[idx[:, k]].astype(np.float32)
+                                 for k in range(3))
             if mesh is None and e.get("mesh") in PROCEDURAL_MESHES:
                 mesh = PROCEDURAL_MESHES[e["mesh"]]()
             self._cache[name] = mesh

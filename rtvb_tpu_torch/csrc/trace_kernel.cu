@@ -18,9 +18,12 @@
 //   holds at once (or fewer for few rays).  Each block stages what the
 //   march reads — the column masks, the supercolumn distance field and the
 //   height envelope, 17 KB for the 64×32×64 world — into shared memory
-//   once, then walks its rays, instead of restaging them for every 256
-//   rays.  The schema, the exception list and the material map are read
-//   once per ray in the epilogue, through the read-only cache.
+//   once, reduces the envelope's maximum (the ascending rays' exit height)
+//   from it, then walks its rays, instead of restaging them for every 256
+//   rays.  The maximum is read from the table at every launch, as the TPU
+//   kernel does, so a table rewritten in place needs no host value.  The
+//   schema, the exception list and the material map are read once per
+//   ray in the epilogue, through the read-only cache.
 // - warp-sized chunks: block b's share of the rays is the 32-ray chunks b,
 //   b + grid, b + 2·grid, …, spread over the whole ray set; a warp takes
 //   the share's next chunk from a shared-memory counter when its 32 rays
@@ -29,6 +32,8 @@
 // - one thread per ray and each ray's arithmetic in the plain version's
 //   order: the library is built with --fmad=false, so every record field
 //   equals the plain version's to the bit.
+#include <climits>
+
 #include "common.cuh"
 
 namespace {
@@ -40,7 +45,7 @@ constexpr int WARPS = THREADS / 32;
 constexpr int SLOTS = 128;            // supercolumn table length
 
 struct World {
-  int X, Y, Z, ss, sl, super_z, max_steps, maxh_max, n_exc, n_b2m;
+  int X, Y, Z, ss, sl, super_z, max_steps, n_exc, n_b2m;
 };
 
 struct Rays {
@@ -125,7 +130,7 @@ template <bool ANY_HIT>
 __device__ __forceinline__ void trace_ray(
     int r, const Rays& q, const World& w, const Tables& tab,
     const uint32_t* __restrict__ colmask, const int* __restrict__ df,
-    const int* __restrict__ maxh, const Record& out) {
+    const int* __restrict__ maxh, float maxh_g, const Record& out) {
   const float ox = q.ox[r], oy = q.oy[r], oz = q.oz[r];
   const float dx = q.dx[r], dy = q.dy[r], dz = q.dz[r];
   const int X = w.X, Y = w.Y, Z = w.Z;
@@ -144,7 +149,7 @@ __device__ __forceinline__ void trace_ray(
   float t_exit = fminf(fminf(txo, tzo), tyo);
   t_exit = fminf(t_exit, q.tcap[r]);
   // global ascending-ray exit cap at the world's height envelope
-  const float t_gm = (static_cast<float>(w.maxh_max) - oy) * inv_dy;
+  const float t_gm = (maxh_g - oy) * inv_dy;
   if (dy > EPS) t_exit = fminf(t_exit, t_gm);
   bool alive = !(t_enter >= t_exit);
 
@@ -272,11 +277,24 @@ trace_kernel(Rays q, Tables tab, World w, Record out) {
   int* maxh = df + SLOTS;
   for (int i = threadIdx.x; i < n_cols; i += THREADS)
     colmask[i] = static_cast<uint32_t>(__ldg(tab.colmask + i));
+  // the envelope's maximum: each of the first SLOTS threads holds one
+  // slot, reduced within its warp, then across the SLOTS / 32 warps
+  static_assert(SLOTS <= THREADS && SLOTS % 32 == 0, "one slot a thread");
+  __shared__ int warp_max[SLOTS / 32];
+  int m = INT_MIN;
   for (int i = threadIdx.x; i < SLOTS; i += THREADS) {
     df[i] = __ldg(tab.df + i);
-    maxh[i] = __ldg(tab.maxh + i);
+    m = __ldg(tab.maxh + i);
+    maxh[i] = m;
   }
+  for (int o = 16; o > 0; o >>= 1)
+    m = max(m, __shfl_xor_sync(0xFFFFFFFFu, m, o));
+  if (threadIdx.x < SLOTS && (threadIdx.x & 31) == 0)
+    warp_max[threadIdx.x >> 5] = m;
   __syncthreads();
+  int mm = warp_max[0];
+  for (int k = 1; k < SLOTS / 32; ++k) mm = max(mm, warp_max[k]);
+  const float maxh_g = static_cast<float>(mm);
 
   // chunks of 32 consecutive rays; block b's share is chunks b, b + grid,
   // b + 2·grid, …, and a warp takes the share's next chunk when its 32
@@ -290,7 +308,8 @@ trace_kernel(Rays q, Tables tab, World w, Record out) {
     const int chunk = blockIdx.x + k * gridDim.x;
     if (chunk >= n_chunks) return;
     const int r = chunk * 32 + lane;
-    if (r < q.n) trace_ray<ANY_HIT>(r, q, w, tab, colmask, df, maxh, out);
+    if (r < q.n)
+      trace_ray<ANY_HIT>(r, q, w, tab, colmask, df, maxh, maxh_g, out);
   }
 }
 
@@ -321,14 +340,13 @@ RTVB_EXPORT int rtvb_trace(
     const int* colmask, const int* df, const int* maxh, const int* schema,
     const int* exc_mask, const int* exc_key, const int* exc_id,
     const int* b2m, int n_exc, int n_b2m, int X, int Y, int Z,
-    int super_size, int super_z, int max_steps, int maxh_max, int any_hit,
+    int super_size, int super_z, int max_steps, int any_hit,
     int* hit, float* t, int* ix, int* iy, int* iz, float* nx, float* ny,
     float* nz, int* mi, void* stream) {
   if (n == 0) return 0;
   int sl = 0;
   while ((1 << sl) < super_size) ++sl;
-  World w{X, Y, Z, super_size, sl, super_z, max_steps, maxh_max, n_exc,
-          n_b2m};
+  World w{X, Y, Z, super_size, sl, super_z, max_steps, n_exc, n_b2m};
   Rays q{ox, oy, oz, dx, dy, dz, tcap, n};
   Tables tab{colmask, df, maxh, schema, exc_mask, exc_key, exc_id, b2m};
   Record out{hit, t, ix, iy, iz, nx, ny, nz, mi};

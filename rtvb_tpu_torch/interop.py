@@ -62,7 +62,7 @@ def materials(jm, device="cpu") -> MaterialTable:
 
 def lights(jl, device="cpu") -> LightTable:
     arrays = {f: _np(getattr(jl, f)) for f in LightTable._fields}
-    arrays["count"] = int(arrays["count"])
+    arrays["count"] = np.asarray(arrays["count"], np.int32)
     arrays["ent"] = arrays["ent"].astype(bool)
     arrays["active"] = arrays["active"].astype(bool)
     return light_table_from_numpy(arrays, device)
@@ -113,6 +113,72 @@ def post_state(jp, device="cpu") -> PostState:
                                            device=device))
 
 
+def mesh_data(jm) -> "MeshData":
+    """A JAX MeshData (host arrays, skeleton, clips) as the port's."""
+    from .models.entity import MeshData
+
+    def opt(a, dtype):
+        return None if a is None else _np(a).astype(dtype)
+    return MeshData(
+        positions=_np(jm.positions).astype(np.float32),
+        normals=_np(jm.normals).astype(np.float32),
+        uvs=_np(jm.uvs).astype(np.float32),
+        indices=_np(jm.indices).astype(np.int32),
+        joints=opt(jm.joints, np.int32), weights=opt(jm.weights, np.float32),
+        skeleton=None if jm.skeleton is None else skeleton(jm.skeleton),
+        clips={n: clip(c) for n, c in jm.clips.items()})
+
+
+def skeleton(js) -> "Skeleton":
+    from .models.skeleton import Skeleton
+    return Skeleton(list(js.names), _np(js.parents).astype(np.int32),
+                    _np(js.bind_t).astype(np.float32),
+                    _np(js.bind_r).astype(np.float32),
+                    _np(js.bind_s).astype(np.float32),
+                    _np(js.inverse_bind).astype(np.float32))
+
+
+def clip(jc) -> "AnimationClip":
+    from .models.animation import AnimationClip
+    return AnimationClip(jc.name, _np(jc.t), _np(jc.r), _np(jc.s),
+                         float(jc.duration), bool(jc.loop))
+
+
+def entity(je) -> "Entity":
+    """A JAX Entity with its pose (current and previous composed
+    matrices) as the port's."""
+    from .models.entity import Entity
+
+    def opt(a):
+        return None if a is None else _np(a).astype(np.float32)
+    return Entity(mesh=mesh_data(je.mesh),
+                  material=je.material, image=je.image,
+                  position=_np(je.position).astype(np.float32),
+                  yaw=float(je.yaw), scale=float(je.scale),
+                  entity_id=int(je.entity_id), joint_mats=opt(je.joint_mats),
+                  prev_joint_mats=opt(je.prev_joint_mats))
+
+
+def character(jch) -> "Character":
+    """A JAX Character (its physics and locomotion state, its entity) as
+    the port's."""
+    from .core.config import CharacterMovementSettings
+    from .models.character import Character
+    ch = Character(
+        cfg_world=WorldConfig(**{f.name: getattr(jch.cfg_world, f.name)
+                                 for f in dataclasses.fields(WorldConfig)}),
+        move=CharacterMovementSettings(**dataclasses.asdict(jch.move)),
+        position=_np(jch.position).astype(np.float32),
+        velocity=_np(jch.velocity).astype(np.float32),
+        yaw=float(jch.yaw), target_yaw=float(jch.target_yaw),
+        on_ground=bool(jch.on_ground), anim_time=float(jch.anim_time),
+        state=jch.state, blend=float(jch.blend), prev_state=jch.prev_state,
+        entity=entity(jch.entity))
+    if hasattr(jch, "_placing"):
+        ch._placing = bool(jch._placing)
+    return ch
+
+
 def shade_tables(lf, li, envf, envi, k_slots: int, device="cpu"):
     """The JAX package's packed fused-shade tables — (N_LF·R, 128) f32 and
     (N_LI·R, 128) i32 light rows (row `f·R + h` holds slots h·128 ..
@@ -136,10 +202,11 @@ def shade_tables(lf, li, envf, envi, k_slots: int, device="cpu"):
 def engine_from_jax(jax_engine, engine):
     """Overwrite the port engine's world (with its configuration: a grown
     exception list), tables, trace parameters, lights and their pending
-    slot remap, sky, atlas, cameras, feedback states, accumulation and UI
-    overlay with the JAX engine's, and rebuild the decoration soup from
-    the carried world (same settings assumed; the internal and output
-    sizes must agree)."""
+    slot remap, sky, atlas, cameras, feedback states, accumulation, UI
+    overlay and entities (with their current and previous poses) with the
+    JAX engine's, and rebuild the soup's static rows from the carried
+    world (same settings assumed; the internal and output sizes must
+    agree)."""
     from .ops.dda import TraceParams, trace_tables
     sizes = [(e.width, e.height, e.out_width, e.out_height)
              for e in (jax_engine, engine)]
@@ -171,5 +238,7 @@ def engine_from_jax(jax_engine, engine):
     engine._accum_n = int(jax_engine._accum_n)
     engine._ui_overlay = _t(jax_engine._ui_overlay, dev, torch.uint8)
     engine._tables = trace_tables(engine.world, engine.materials)
-    engine._entity_cache = None
+    engine.entities = [entity(e) for e in jax_engine.entities]
+    engine._decor_np = None          # rebuilt from the carried world
+    engine._soup_key = None
     return engine

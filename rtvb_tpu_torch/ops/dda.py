@@ -45,7 +45,6 @@ class TraceTables(NamedTuple):
     exc_key: torch.Tensor     # (K,) int32 ascending
     exc_id: torch.Tensor      # (K,) int32
     block_to_mat: torch.Tensor  # (B,) int32
-    maxh_max: int             # max(maxh): the ascending-ray exit height
 
 
 class HitRecord(NamedTuple):
@@ -64,8 +63,7 @@ def trace_tables(world, mats) -> TraceTables:
     return TraceTables(colmask=world.colmask, df=world.df_super,
                        maxh=world.maxh_super, schema=world.schema,
                        exc_mask=world.exc_mask, exc_key=world.exc_key,
-                       exc_id=world.exc_id, block_to_mat=mats.block_to_mat,
-                       maxh_max=int(world.maxh_super.max().item()))
+                       exc_id=world.exc_id, block_to_mat=mats.block_to_mat)
 
 
 def trace_params(cfg, max_steps: int) -> TraceParams:
@@ -180,8 +178,9 @@ def trace_plain(o, d, tables: TraceTables, p: TraceParams, t_cap=None,
     t_exit = torch.minimum(torch.minimum(txo, tzo), tyo)
     if t_cap is not None:
         t_exit = torch.minimum(t_exit, t_cap)
-    # global ascending-ray exit cap at the world's height envelope
-    maxh_g = float(tables.maxh_max)
+    # global ascending-ray exit cap at the world's height envelope (its
+    # maximum read from the table, as the kernel does)
+    maxh_g = maxh_row.max().to(f32)
     t_gm = (maxh_g - oy) * inv_dy
     t_exit = torch.where(dy > EPS, torch.minimum(t_exit, t_gm), t_exit)
     miss_from_start = t_enter >= t_exit
@@ -336,7 +335,7 @@ def substeps(o, d, tables: TraceTables, p: TraceParams, t_cap=None,
 
 TRACE = K.register(K.CudaKernel(
     "trace", "rtvb_trace",
-    [K.P] * 7 + [K.I] + [K.P] * 8 + [K.I] * 10 + [K.P] * 9))
+    [K.P] * 7 + [K.I] + [K.P] * 8 + [K.I] * 9 + [K.P] * 9))
 
 
 def trace_cuda(o, d, tables: TraceTables, p: TraceParams, t_cap=None,
@@ -379,7 +378,7 @@ def trace_cuda(o, d, tables: TraceTables, p: TraceParams, t_cap=None,
                 torch.empty(shape, **i32)]
     TRACE.launch(dev, *rays, t_cap, n, *tabs, n_exc,
                  tabs[7].shape[0], p.x, p.y, p.z, p.super_size, p.super_z,
-                 p.max_steps, tables.maxh_max, int(any_hit), *outs)
+                 p.max_steps, int(any_hit), *outs)
     if any_hit:
         return HitRecord(hit=hit != 0, t=t, ix=None, iy=None, iz=None,
                          nx=None, ny=None, nz=None, mi=None)

@@ -8,12 +8,14 @@ addresses.  So everything a frame takes that changes from frame to frame
 lives in one fixed device buffer (`FrameInputs`): the frame index, `dt`,
 the camera and the history camera, the light remap.  Before every frame
 the engine writes it on the stream from its host copies, through a small
-ring of pinned host buffers.  The feedback states are fixed buffers of
-the engine, written in place at the end of each frame (the counterpart
-of `donate_argnums`).  A graph is keyed by the identity of every other
-tensor it read (`identity`): when one of them is replaced (an edit, a new
-sky, new settings), the engine captures anew and releases the stale
-graph (`FrameGraph.release`).
+ring of pinned host buffers (`HostStaged`).  The feedback states are
+fixed buffers of the engine, written in place at the end of each frame
+(the counterpart of `donate_argnums`); an edit writes the world, light
+and soup tables in place while their shapes stand (`write_fields`).  A
+graph is keyed by the identity of every other tensor it read
+(`identity`): when one of them is replaced (a table that grew, a new sky,
+new settings), the engine captures anew and releases the stale graph
+(`FrameGraph.release`).
 """
 from __future__ import annotations
 
@@ -32,19 +34,48 @@ HEADER_WORDS = 17
 _PINNED_RING = 4
 
 
+class HostStaged:
+    """A fixed device buffer of n `dtype` values written from the host.
+    `host()` gives the host array to fill, `commit()` copies it into
+    `buf` on the device's current stream: on a CUDA device from a ring of
+    pinned host buffers, each reused only after its copy has run; on the
+    CPU `host()` is the buffer itself."""
+
+    def __init__(self, device: torch.device, n: int, dtype=torch.int32):
+        self.buf = torch.zeros(n, dtype=dtype, device=device)
+        self._ring = []
+        if device.type == "cuda":
+            self._ring = [(torch.empty(n, dtype=dtype, pin_memory=True),
+                           torch.cuda.Event()) for _ in range(_PINNED_RING)]
+        self._next = 0
+
+    def host(self) -> np.ndarray:
+        if not self._ring:
+            return self.buf.numpy()
+        host, done = self._ring[self._next]
+        done.synchronize()          # this buffer's last copy has run
+        return host.numpy()
+
+    def commit(self) -> None:
+        if self._ring:
+            host, done = self._ring[self._next]
+            self.buf.copy_(host, non_blocking=True)
+            done.record()
+            self._next = (self._next + 1) % len(self._ring)
+
+
 class FrameInputs:
     """The per-frame inputs in one fixed device buffer of int32 words,
     with fixed views: `frame` (0-d int64), `dt` (0-d f32), `camera` and
     `history_camera` (Camera views), `remap` (int32, n_remap slots:
     the light remap, the identity past its length).  `write` fills it from
-    host values: on a CUDA device with one copy from a pinned host buffer
-    (a ring of them, each reused only after its copy has run)."""
+    host values (a HostStaged buffer)."""
 
     def __init__(self, device: torch.device, n_remap: int):
         self.device = device
         self.n_remap = n_remap
-        n = HEADER_WORDS + n_remap
-        self.words = torch.zeros(n, dtype=torch.int32, device=device)
+        self._staged = HostStaged(device, HEADER_WORDS + n_remap)
+        self.words = self._staged.buf
         self.frame = self.words[0:2].view(torch.int64)[0]
         f = self.words[2:HEADER_WORDS].view(torch.float32)
         self.dt = f[0]
@@ -52,22 +83,12 @@ class FrameInputs:
         self.history_camera: Camera = camera_view(f[8:15])
         self.remap = self.words[HEADER_WORDS:]
         self._identity = np.arange(n_remap, dtype=np.int32)
-        self._ring = []
-        if device.type == "cuda":
-            self._ring = [(torch.empty(n, dtype=torch.int32, pin_memory=True),
-                           torch.cuda.Event()) for _ in range(_PINNED_RING)]
-        self._next = 0
 
     def write(self, frame_index: int, dt: float, camera: np.ndarray,
               history_camera: np.ndarray, remap: np.ndarray | None):
         """Write the inputs on the device's current stream; remap None is
         the identity."""
-        if self._ring:
-            host, done = self._ring[self._next]
-            done.synchronize()          # this buffer's last copy has run
-        else:
-            host = self.words
-        a = host.numpy()
+        a = self._staged.host()
         a[0:2].view(np.int64)[0] = frame_index
         f = a[2:HEADER_WORDS].view(np.float32)
         f[0] = dt
@@ -77,10 +98,50 @@ class FrameInputs:
         r[:] = self._identity
         if remap is not None:
             r[:len(remap)] = remap
-        if self._ring:
-            self.words.copy_(host, non_blocking=True)
-            done.record()
-            self._next = (self._next + 1) % len(self._ring)
+        self._staged.commit()
+
+
+def _pinned(arr) -> torch.Tensor:
+    """A pinned host tensor holding a copy of host array `arr` (a copy
+    from it to the card waits for nothing; the caching host allocator
+    keeps it until that copy has run)."""
+    return torch.from_numpy(np.array(arr, order="C")).pin_memory()
+
+
+def upload(arr, device: torch.device) -> torch.Tensor:
+    """A new tensor on `device` holding host array `arr`, copied on the
+    current stream (on a CUDA device from pinned memory, without a wait
+    for the stream's queued work)."""
+    if device.type != "cuda":
+        return torch.from_numpy(np.array(arr, order="C"))
+    return _pinned(arr).to(device, non_blocking=True)
+
+
+def write_fields(fields, arrays: dict) -> bool:
+    """Write the host `arrays` into the tensors of the NamedTuple `fields`
+    in place, each by name (on the current stream, after whatever read
+    them before it and before whatever is queued after), when every
+    tensor's shape and dtype agree with its array's; else write nothing
+    and return False."""
+    pairs = [(t, np.asarray(arrays[f])) for f, t in zip(fields._fields,
+                                                       fields)
+             if isinstance(t, torch.Tensor)]
+    for t, a in pairs:
+        if tuple(t.shape) != a.shape or \
+                t.dtype != torch.from_numpy(np.empty(0, a.dtype)).dtype:
+            return False
+    for t, a in pairs:
+        copy_in(t, a)
+    return True
+
+
+def copy_in(t: torch.Tensor, arr) -> None:
+    """Write host array `arr` into `t` in place, on the current stream (on
+    a CUDA device from pinned memory, without a wait)."""
+    if t.device.type == "cuda":
+        t.copy_(_pinned(arr), non_blocking=True)
+    else:
+        t.copy_(torch.from_numpy(np.array(arr, order="C")))
 
 
 def identity(obj) -> tuple:

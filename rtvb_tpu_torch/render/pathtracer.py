@@ -44,7 +44,8 @@ def spawn_eps(p):
 
 
 class EntityBuffers(NamedTuple):
-    """Triangle soup of the decorations (padded with zero rows to a pow2)."""
+    """Triangle soup of the decorations and live entities (padded with
+    zero rows to a pow2; render/soup.py)."""
     tri_packed: torch.Tensor   # (T, 9) [v0 | e1 | e2]
     normals: torch.Tensor      # (T, 3)
     prev_v0: torch.Tensor      # (T, 3) previous-frame vertices

@@ -23,11 +23,19 @@ denoises at the internal size and post upscales to the output size with
 EASU (the K7 kernel).
 
 The gameplay calls: world edits (`set_block`, `set_blocks`,
-`delete_block`: host table rebuilds, a light-slot remap consumed by the
-next frame, the decoration soup rebuilt), `pick_block` (one camera-centre
-ray through K1), `apply_settings` / `set_sky` / `set_ui_overlay`, the
-offline accumulation (`path_trace`, `render_accumulated`,
-`reset_accumulation`) and `warm_light_variant_async`.
+`delete_block`: the tables rebuilt on the host from the engine's host
+copy of the world, then written into the device tables in place while
+their shapes stand, a light-slot remap consumed by the next frame),
+`pick_block` (one camera-centre ray through K1), `add_entity` (a live
+entity: its triangles join the soup, packed from its pose before each
+frame), `apply_settings` / `set_sky` / `set_ui_overlay`, the offline
+accumulation (`path_trace`, `render_accumulated`, `reset_accumulation`)
+and `warm_light_variant_async`.  A captured graph stays valid across
+edits, a moving entity and a new overlay; the engine captures anew
+where the JAX package compiles anew: the exception list grew, the light
+table's K slots or the soup's rows changed, the local-light count
+changed (no light ↔ some), or the settings, the sky or the render size
+changed.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ import os
 import threading
 import time
 import traceback
+import types
 import warnings
 
 import numpy as np
@@ -51,11 +60,12 @@ from ..assets.decorations import DecorationMeshes
 from ..assets.materials import MaterialRegistry
 from ..assets.textures import TEXTURE_IDS
 from ..core.camera import Camera, camera_leaves
-from ..ops.dda import trace, trace_params, trace_tables
+from ..ops.dda import TraceTables, trace, trace_params, trace_tables
 from ..world import gen, lighting, voxel
 from . import frame_graph, pathtracer, postprocess
 from . import restir as restir_mod
 from . import sky as sky_mod
+from . import soup as soup_mod
 from .denoiser import DenoiserState, denoise_frame, initial_denoiser_state
 from .postprocess import PostState
 
@@ -132,12 +142,21 @@ class Engine:
         self.materials = self.material_registry.build_table(
             self.block_registry, TEXTURE_IDS, image_names, device=self.device)
 
-        self.cfg, self.world = gen.generate_world(
-            seed=self.scene.world_seed, nonsolid_ids=self._nonsolid_ids(),
-            device=self.device)
-        self.lights = lighting.build_light_table(
-            self.cfg, self.world, self.materials, self.block_registry,
-            self.decor, device=self.device)
+        # the world's and the light table's host copies: edits rebuild on
+        # the host from these and read nothing back from the device
+        self.cfg = voxel.WorldConfig()
+        tables = gen.generate_tables(self.cfg, seed=self.scene.world_seed,
+                                     nonsolid_ids=self._nonsolid_ids())
+        self.world = voxel.world_from_numpy(tables, self.device)
+        self._world_np = (self.world, tables)
+        self.world_version = 0
+        self._mats_np = None
+        light_arrays = lighting.build_light_arrays(
+            self.cfg, types.SimpleNamespace(**tables), self._host_mats(),
+            self.block_registry, self.decor)
+        self.lights = lighting.light_table_from_numpy(light_arrays,
+                                                      self.device)
+        self._lights_np = (self.lights, light_arrays)
         self.sky_state = sky_mod.make_sky_state(self.settings.sky,
                                                 device=self.device)
         # the cameras' leaves on the host; the device copies are views of
@@ -162,7 +181,16 @@ class Engine:
         self._accum_n = 0
         self._tp = trace_params(self.cfg, rs.max_trace_steps)
         self._tables = trace_tables(self.world, self.materials)
-        self._entity_cache = None
+        # the triangle soup: decorations and live entities
+        self.entities: list = []
+        self.max_entity_tris = 256
+        self._decor_np = None          # host decoration rows (None: stale)
+        self._decor_epoch = 0
+        self._soup = None              # soup.Soup, or None: no triangles
+        self._soup_key = None          # what its static rows were made of
+        self._entity_static_cache: dict = {}
+        self._poses = None             # (layout, HostStaged pose matrices)
+        self.last_edit: dict = {}
         self._post_consts = None
         self._inputs = None
         self._dt = 1.0 / 60.0
@@ -174,9 +202,11 @@ class Engine:
         self.graph_log: list = []
 
     def __copy__(self):
-        """A shallow copy with its own input buffer, feedback states and
-        graphs (the tables and assets stay shared: no frame writes
-        them)."""
+        """A shallow copy with its own input buffer, feedback states,
+        graphs, world and light tables, soup and overlay (an edit writes
+        those in place, a frame the soup's entity rows); the assets, the
+        host copies (replaced, never written, by an edit) and the entities
+        themselves stay shared."""
         new = object.__new__(type(self))
         new.__dict__.update(self.__dict__)
         new._inputs = None
@@ -184,6 +214,15 @@ class Engine:
         new._graphs = {}
         new._graph_identity = None
         new.graph_log = []
+        new.world = voxel.VoxelWorld(*(t.clone() for t in self.world))
+        new._world_np = (new.world, self._host_tables())
+        new._tables = trace_tables(new.world, self.materials)
+        new.lights = lighting.LightTable(*(t.clone() for t in self.lights))
+        new._lights_np = (new.lights, self._host_lights())
+        new.entities = list(self.entities)
+        new._soup = None if self._soup is None else self._soup.clone()
+        new._poses = None
+        new._ui_overlay = self._ui_overlay.clone()
         new._hist_host = self._hist_host.copy()
         new._cam_host = self._cam_host.copy()
         if self.restir_state is not None:
@@ -329,7 +368,10 @@ class Engine:
 
     def set_ui_overlay(self, rgba_u8) -> None:
         """Upload a host-rastered (out_h, out_w, 4) u8 RGBA overlay that
-        every frame composites over its output; None clears it."""
+        every frame composites over its output; None clears it.  Written
+        into the overlay buffer in place while its size stands (as the
+        JAX package passes a new array of the same shape without
+        compiling anew)."""
         if rgba_u8 is None:
             rgba_u8 = np.zeros((self.out_height, self.out_width, 4),
                                np.uint8)
@@ -337,16 +379,21 @@ class Engine:
         if tuple(rgba_u8.shape) != shape:
             raise ValueError(f"overlay shape {tuple(rgba_u8.shape)}, "
                              f"expected {shape}")
-        self._ui_overlay = torch.as_tensor(np.asarray(rgba_u8, np.uint8),
-                                           device=self.device)
+        arr = np.asarray(rgba_u8, np.uint8)
+        if tuple(self._ui_overlay.shape) == shape:
+            frame_graph.copy_in(self._ui_overlay, arr)
+        else:
+            self._ui_overlay = torch.as_tensor(arr, device=self.device)
 
     def _nonsolid_ids(self):
         return tuple(b.id for b in self.block_registry.blocks if b.instanced)
 
     @property
     def _n_local(self) -> int:
+        """Local-light RIS candidates the frame streams: 0 without a light
+        (read from the host copy of the light table)."""
         return self.settings.rendering.local_light_candidates \
-            if self.lights.count > 0 else 0
+            if int(self._host_lights()["count"]) > 0 else 0
 
     def set_camera(self, pos=None, yaw=None, pitch=None, keep_history=False):
         """Move the camera (None keeps a value; read from the host copy,
@@ -368,15 +415,15 @@ class Engine:
     def set_block(self, x: int, y: int, z: int, block_id: int):
         """Place (or, with id 0, remove) one block; returns the light-slot
         remap (previous slot → current, -1 where gone)."""
-        self.world = voxel.set_block(self.cfg, self.world, x, y, z, block_id,
-                                     self._nonsolid_ids())
-        return self._after_edit()
+        return self.set_blocks([[x, y, z]], [block_id])
 
     def set_blocks(self, xyz, ids):
         """Bulk edit: N placements / removals, one table + light rebuild."""
-        self.world = voxel.set_blocks(self.cfg, self.world, xyz, ids,
-                                      self._nonsolid_ids())
-        return self._after_edit()
+        t0 = time.perf_counter()
+        blocks = self._host_tables()["blocks"].copy()
+        xyz = np.asarray(xyz, np.int64).reshape(-1, 3)
+        blocks[xyz[:, 0], xyz[:, 1], xyz[:, 2]] = np.asarray(ids, np.uint8)
+        return self._after_edit(blocks, t0)
 
     def delete_block(self, x: int, y: int, z: int):
         return self.set_block(x, y, z, 0)
@@ -390,33 +437,90 @@ class Engine:
             self._identity_remaps[n] = r
         return r
 
-    def _after_edit(self):
-        """Grow the exception list to the next power of two if the edit
-        overflowed it, rebuild the light table, keep the slot remap for
-        the next frame, and rebuild the trace tables and (at the next
-        frame) the decoration soup.  The host reads the tables here, never
-        in the frame."""
-        n_exc = voxel.exception_count(self.cfg, self.world)
+    # host copies of the device tables (read back only when a table was
+    # replaced from outside, as interop.engine_from_jax does)
+
+    def _host_tables(self) -> dict:
+        """The world's tables on the host (build_tables_np's layout)."""
+        if self._world_np[0] is not self.world:
+            self._world_np = (self.world, voxel.world_to_numpy(self.world))
+            self.world_version += 1
+        return self._world_np[1]
+
+    def _host_lights(self) -> dict:
+        """The light table's fields on the host."""
+        if self._lights_np[0] is not self.lights:
+            self._lights_np = (self.lights, {
+                f: t.cpu().numpy()
+                for f, t in zip(lighting.LightTable._fields, self.lights)})
+        return self._lights_np[1]
+
+    def _host_mats(self):
+        """The material table's block map and emissive colours on the
+        host (what the light table's build reads)."""
+        if self._mats_np is None or self._mats_np[0] is not self.materials:
+            self._mats_np = (self.materials, types.SimpleNamespace(
+                block_to_mat=self.materials.block_to_mat.cpu().numpy(),
+                emissive=self.materials.emissive.cpu().numpy()))
+        return self._mats_np[1]
+
+    @property
+    def host_world(self) -> voxel.HostWorld:
+        """The block grid on the host and the world version (bumped on
+        every edit): what a Character collides against."""
+        return voxel.HostWorld(blocks=self._host_tables()["blocks"],
+                               version=self.world_version)
+
+    def _after_edit(self, blocks: np.ndarray, t0: float):
+        """Rebuild the world's tables, the light table, the slot remap and
+        the decoration rows on the host from the edited grid (growing the
+        exception list to the next power of two if the edit overflowed
+        it), then write them into the device tables in place where the
+        shapes stand — after every frame queued so far, before the next —
+        or replace the tables that changed shape.  The remap is consumed
+        by the next frame.  `last_edit` gets the host ms of the rebuild
+        and of the uploads."""
+        host = self._host_tables()
+        nonsolid = self._nonsolid_ids()
+        tables = voxel.build_tables_np(self.cfg, blocks, host["schema"],
+                                       nonsolid)
+        n_exc = voxel.exception_count_np(self.cfg, tables)
         if n_exc > self.cfg.max_exceptions:
             cap = self.cfg.max_exceptions
             while cap < n_exc:
                 cap *= 2
             self.cfg = dataclasses.replace(self.cfg, max_exceptions=cap)
-            self.world = voxel.build_tables(
-                self.cfg, self.world.blocks, self.world.schema,
-                self._nonsolid_ids(), device=self.device)
-        prev_lights = self.lights
-        self.lights = lighting.build_light_table(
-            self.cfg, self.world, self.materials, self.block_registry,
-            self.decor, device=self.device)
-        remap = lighting.light_id_remap(prev_lights, self.lights)
-        self._light_remap = remap     # consumed by the next frame
-        self._remap_host = (remap, remap.cpu().numpy())
+            tables = voxel.build_tables_np(self.cfg, blocks, host["schema"],
+                                           nonsolid)
+        prev_key = self._host_lights()["key"]
+        light_arrays = lighting.build_light_arrays(
+            self.cfg, types.SimpleNamespace(**tables), self._host_mats(),
+            self.block_registry, self.decor)
+        remap = lighting.light_id_remap_np(prev_key, light_arrays["key"])
+        self._world_np = (self.world, tables)
+        self._lights_np = (self.lights, light_arrays)
+        self.world_version += 1
+        self._decor_np = None
+        self._decoration_triangles()
+        t1 = time.perf_counter()
+
+        if not frame_graph.write_fields(self.world, tables):
+            self.world = voxel.world_from_numpy(tables, self.device)
+            self._world_np = (self.world, tables)
+            self._tables = trace_tables(self.world, self.materials)
+        if not frame_graph.write_fields(self.lights, light_arrays):
+            self.lights = lighting.light_table_from_numpy(light_arrays,
+                                                          self.device)
+            self._lights_np = (self.lights, light_arrays)
+        remap_t = frame_graph.upload(remap, self.device)
+        self._light_remap = remap_t     # consumed by the next frame
+        self._remap_host = (remap_t, remap)
         self._staged = False
         self._tp = trace_params(self.cfg, self._tp.max_steps)
-        self._tables = trace_tables(self.world, self.materials)
-        self._entity_cache = None
-        return remap
+        self._soup_static()
+        self.last_edit = dict(host_ms=(t1 - t0) * 1e3,
+                              upload_ms=(time.perf_counter() - t1) * 1e3)
+        return remap_t
 
     def pick_block(self, max_dist: float = 8.0):
         """Camera-centre voxel pick: one ray through the trace (K1 on the
@@ -438,11 +542,19 @@ class Engine:
                 (float(nx), float(ny), float(nz)))
 
     # ------------------------------------------------------------------
-    # decoration triangle soup
+    # the triangle soup: decorations and live entities
     # ------------------------------------------------------------------
 
+    def add_entity(self, entity):
+        self.entities.append(entity)
+
     def _decoration_triangles(self):
-        blocks = self.world.blocks.cpu().numpy()
+        """The decoration rows on the host (v0, v1, v2, material, light
+        slot), from the host grid and light keys; rebuilt after an edit."""
+        if self._decor_np is not None:
+            return self._decor_np
+        blocks = self._host_tables()["blocks"]
+        keys = self._host_lights()["key"]
         cfg = self.cfg
         v0s, v1s, v2s, mats, slots = [], [], [], [], []
         for b in self.block_registry.blocks:
@@ -469,54 +581,116 @@ class Engine:
                 ordinal = 0
                 for t in range(len(v0)):
                     if is_light[t]:
-                        sl[t] = lighting.light_slot_of(self.lights, vkey,
-                                                       ordinal)
+                        sl[t] = lighting.light_slot_of(keys, vkey, ordinal)
                         ordinal += 1
                 slots.append(sl)
-        if not v0s:
+        if v0s:
+            self._decor_np = (np.concatenate(v0s), np.concatenate(v1s),
+                              np.concatenate(v2s), np.concatenate(mats),
+                              np.concatenate(slots))
+        else:
             z = np.zeros((0, 3), np.float32)
             zi = np.zeros(0, np.int32)
-            return z, z, z, zi, zi
-        return (np.concatenate(v0s), np.concatenate(v1s), np.concatenate(v2s),
-                np.concatenate(mats), np.concatenate(slots))
+            self._decor_np = (z, z, z, zi, zi)
+        self._decor_epoch += 1
+        return self._decor_np
+
+    def _entity_static(self, e) -> soup_mod.EntityStatic:
+        """An entity's mesh on the device, uploaded once (cached by the
+        entity's id, held with its mesh so that a reused id misses)."""
+        hit = self._entity_static_cache.get(id(e))
+        if hit is None or hit[0] is not e.mesh:
+            hit = (e.mesh, soup_mod.entity_static(e.mesh, self.device))
+            self._entity_static_cache[id(e)] = hit
+        return hit[1]
+
+    def _soup_static(self):
+        """The soup with its static rows current, or None without
+        triangles: a new soup when the row count changes, else the
+        decoration rows and every row's metadata written in place when
+        the decorations or the entity set changed (the JAX package's
+        metadata cache key: decoration epoch, entity ids, rows)."""
+        dv0 = self._decoration_triangles()[0]
+        n_tris = len(dv0) + sum(e.mesh.n_triangles for e in self.entities)
+        if n_tris == 0:
+            self._soup = None
+            self._soup_key = None
+            return None
+        assert n_tris <= self.max_entity_tris, \
+            f"entity triangle budget exceeded: {n_tris}"
+        t_max = soup_mod.soup_rows(n_tris)
+        key = (self._decor_epoch, tuple(id(e) for e in self.entities), t_max)
+        if self._soup is None or self._soup.t_max != t_max:
+            self._soup = soup_mod.Soup(t_max, self.device)
+            self._soup_key = None
+        if self._soup_key != key:
+            img_slots = {n: i for i, n in enumerate(self.texture_atlas_names)}
+            ents = []
+            for e in self.entities:
+                m = e.mesh
+                idx = m.indices
+                uv = (np.concatenate([m.uvs[idx[:, 0]], m.uvs[idx[:, 1]],
+                                      m.uvs[idx[:, 2]]], axis=-1)
+                      if m.uvs is not None
+                      else np.zeros((m.n_triangles, 6), np.float32))
+                ents.append((m.n_triangles,
+                             self.material_registry.index_of(e.material),
+                             uv, img_slots.get(e.image, -1)))
+            self._soup.write_static(soup_mod.static_arrays(
+                t_max, self._decoration_triangles(), ents))
+            self._soup_key = key
+        return self._soup
+
+    def _pack_entities(self):
+        """Write every entity's rows of the soup from its current and
+        previous pose (composed model ∘ skinning matrices; the model
+        matrix alone before its first pose): the matrices cross to the
+        device in one copy through pinned memory, then the pack runs on
+        the current stream."""
+        mats = []
+        for e in self.entities:
+            cm = e.joint_mats if e.joint_mats is not None \
+                else e.model_matrix_np()[None]
+            pm = e.prev_joint_mats if e.prev_joint_mats is not None else cm
+            mats.append((cm, pm))
+        layout = tuple(cm.shape[0] for cm, _ in mats)
+        if self._poses is None or self._poses[0] != layout:
+            self._poses = (layout, frame_graph.HostStaged(
+                self.device, 2 * 16 * sum(layout), torch.float32))
+        staged = self._poses[1]
+        host = staged.host()
+        off = 0
+        for cm, pm in mats:
+            for m in (cm, pm):
+                host[off:off + m.size] = np.asarray(m, np.float32).reshape(-1)
+                off += m.size
+        staged.commit()
+        off = 0
+        row = len(self._decoration_triangles()[0])
+        for e, (cm, _) in zip(self.entities, mats):
+            n = cm.size
+            cur = staged.buf[off:off + n].view(-1, 4, 4)
+            prev = staged.buf[off + n:off + 2 * n].view(-1, 4, 4)
+            self._soup.pack_entity(row, self._entity_static(e), cur, prev)
+            off += 2 * n
+            row += e.mesh.n_triangles
 
     def entity_buffers(self):
-        """EntityBuffers of the decorations (padded to a pow2 ≥ 16), or
-        None when the world holds none.  Cached until an edit (there are
-        no live entities yet)."""
-        if self._entity_cache is not None:
-            return self._entity_cache[0]
-        dv0, dv1, dv2, dmat, dslot = self._decoration_triangles()
-        n_tris = len(dv0)
-        if n_tris == 0:
-            self._entity_cache = (None,)
+        """The soup's EntityBuffers for the current poses, or None when the
+        scene has no triangles: decorations first, then each entity's
+        triangles, zero rows up to a power of two ≥ 16.  The same tensors
+        while the row count stands; the entities' rows are packed anew at
+        each call (before the frame that reads them)."""
+        soup = self._soup_static()
+        if soup is None:
             return None
-        t_max = 16
-        while t_max < n_tris:
-            t_max *= 2
-        pad = t_max - n_tris
-        nrm = np.cross(dv1 - dv0, dv2 - dv0)
-        nrm = nrm / np.maximum(np.linalg.norm(nrm, axis=-1, keepdims=True),
-                               1e-12)
-        z3 = np.zeros((pad, 3), np.float32)
+        if self.entities:
+            self._pack_entities()
+        return soup.buffers
 
-        def t(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-
-        buf = pathtracer.EntityBuffers(
-            tri_packed=t(np.concatenate(
-                [np.concatenate([dv0, dv1 - dv0, dv2 - dv0], axis=-1),
-                 np.zeros((pad, 9), np.float32)]).astype(np.float32)),
-            normals=t(np.concatenate([nrm.astype(np.float32), z3])),
-            prev_v0=t(np.concatenate([dv0, z3])),
-            prev_v1=t(np.concatenate([dv1, z3])),
-            prev_v2=t(np.concatenate([dv2, z3])),
-            mat_index=t(np.concatenate([dmat, np.zeros(pad, np.int32)])),
-            light_slot=t(np.concatenate([dslot, np.full(pad, -1, np.int32)])),
-            uvs=t(np.zeros((t_max, 6), np.float32)),
-            image_id=t(np.full(t_max, -1, np.int32)))
-        self._entity_cache = (buf,)
-        return buf
+    def _ent(self):
+        """The soup's buffers as they stand (no pack)."""
+        return None if self._soup is None else self._soup.buffers
 
     # ------------------------------------------------------------------
     # the frame
@@ -642,7 +816,7 @@ class Engine:
         inp = self._inputs
         restir, dstate, pstate = (self.restir_state, self.denoiser_state,
                                   self.post_state)
-        ent, atlas = self.entity_buffers(), self.texture_atlas
+        ent, atlas = self._ent(), self.texture_atlas
         outs = []
         for k in range(nb):
             hist = inp.history_camera if k == 0 else inp.camera
@@ -666,7 +840,11 @@ class Engine:
         self._staged = False
 
     def _frames(self, nb: int, dt: float, graph: bool) -> torch.Tensor:
+        """nb frames: the soup brought up to date (the entities packed once
+        for all nb, as the JAX package passes one soup to its batch), the
+        inputs staged, then the frames eagerly or by a graph."""
         self._ensure_states()
+        self.entity_buffers()
         self._stage(dt)
         if graph:
             out = self._graph_frames(nb)
@@ -686,7 +864,7 @@ class Engine:
         """What a captured frame reads or writes by address (and the
         values its launches took)."""
         return (self._tables, self.materials, self.lights, self.sky_state,
-                self.texture_atlas, self.entity_buffers(), self._ui_overlay,
+                self.texture_atlas, self._ent(), self._ui_overlay,
                 self._frame_constants(), self.restir_state,
                 self.denoiser_state, self.post_state, self._inputs.words)
 
@@ -762,11 +940,13 @@ class Engine:
         """Run one throwaway frame of the lights-on variant (the
         configured local-light candidates in place of 0) in a background
         thread, on its own CUDA stream with throwaway feedback states and
-        copies of the per-frame inputs, so that the first lit frame finds
-        K4's lit instances loaded (CUDA loads a kernel's module at its
-        first launch).  Returns the Thread, or None when the variant is
-        already live or the engine has not rendered yet.  The live states
-        are not touched."""
+        copies of the per-frame inputs, the tables, the soup and the
+        overlay (an edit, a pack or an overlay may write those in place
+        while the variant runs), so
+        that the first lit frame finds K4's lit instances loaded (CUDA
+        loads a kernel's module at its first launch).  Returns the
+        Thread, or None when the variant is already live or the engine
+        has not rendered yet.  The live states are not touched."""
         n_local = self.settings.rendering.local_light_candidates
         if self._n_local == n_local or self.restir_state is None \
                 or self.denoiser_state is None:
@@ -775,16 +955,22 @@ class Engine:
         inp = self._staged_inputs()
         cam = Camera(*(t.clone() for t in inp.camera))
         hist = Camera(*(t.clone() for t in inp.history_camera))
-        args = (self._tables, self.materials, self.lights, self.sky_state,
-                cam, hist, inp.frame.clone(),
+        ent = self._ent()
+        args = (TraceTables(*(t.clone() if isinstance(t, torch.Tensor)
+                              else t for t in self._tables)),
+                self.materials,
+                lighting.LightTable(*(t.clone() for t in self.lights)),
+                self.sky_state, cam, hist, inp.frame.clone(),
                 restir_mod.initial_state(self.height, self.width,
                                          device=self.device),
                 inp.remap.clone(),
                 initial_denoiser_state(self.height, self.width,
                                        device=self.device),
                 PostState(exposure=self.post_state.exposure.clone()),
-                inp.dt.clone(), self.entity_buffers(), self.texture_atlas,
-                self._ui_overlay)
+                inp.dt.clone(),
+                None if ent is None else pathtracer.EntityBuffers(
+                    *(t.clone() for t in ent)),
+                self.texture_atlas, self._ui_overlay.clone())
         stream = None
         if self.device.type == "cuda":
             stream = torch.cuda.Stream(self.device)

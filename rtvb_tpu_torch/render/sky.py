@@ -299,13 +299,16 @@ SF_LEN = 72
 
 def sky_scalar_pack(sky: SkyState, any_lights) -> torch.Tensor:
     """(SF_LEN,) f32 vector of per-frame sky/sun scalars, on the sky
-    state's device (layout above)."""
+    state's device (layout above).  any_lights: a 0-d bool tensor on that
+    device (read there, not on the host) or a host bool."""
     cos_r = sky.cos_sun_radius
     pdf_sun = 1.0 / torch.clamp(2.0 * math.pi * (1.0 - cos_r), min=1e-9)
     inv_sin2r = 1.0 / torch.clamp(1.0 - cos_r * cos_r, min=1e-12)
     dev = cos_r.device
-    head = torch.stack([*sky.sun_dir, cos_r, pdf_sun,
-                        torch.full((), float(bool(any_lights)), device=dev),
+    lit = (any_lights.to(torch.float32)
+           if isinstance(any_lights, torch.Tensor)
+           else torch.full((), float(bool(any_lights)), device=dev))
+    head = torch.stack([*sky.sun_dir, cos_r, pdf_sun, lit,
                         inv_sin2r, torch.zeros((), device=dev)])
     return torch.cat([head.to(torch.float32), sky.sun_poly.reshape(-1),
                       sky.basis_p.reshape(-1), sky.basis_m.reshape(-1),

@@ -1,6 +1,11 @@
 """Dynamic light system: emissive geometry → sampleable triangle-light table
 (port of rtvb_tpu/world/lighting.py; the table build is host numpy, the
-per-pixel sampling helpers are torch)."""
+per-pixel sampling helpers are torch).
+
+The build reads its inputs as host arrays (`build_light_arrays`), so an
+engine that keeps host copies of its world and materials rebuilds the
+table without reading the device, and writes the arrays into the
+existing table in place while K stands."""
 from __future__ import annotations
 
 import warnings
@@ -12,7 +17,7 @@ import torch
 from ..assets.blocks import BlockRegistry
 
 from ..ops import alias_table as at
-from .voxel import EXC_EMPTY, WorldConfig, VoxelWorld
+from .voxel import EXC_EMPTY, WorldConfig
 
 MAX_LIGHT_TRIS = 256
 LIGHT_KEY_EMPTY = 1 << 30
@@ -39,7 +44,7 @@ class LightTable(NamedTuple):
     key: torch.Tensor      # (K,) i32 identity voxel_key*16 + ordinal
     ent: torch.Tensor      # (K,) bool
     active: torch.Tensor   # (K,) bool
-    count: int             # number of active light triangles (host int)
+    count: torch.Tensor    # () int32 number of active light triangles
     prob: torch.Tensor
     alias: torch.Tensor
     pmf: torch.Tensor
@@ -64,16 +69,21 @@ def _cube_triangles():
     return tris
 
 
-def emissive_triangles(cfg: WorldConfig, world: VoxelWorld, mats,
-                       blocks: BlockRegistry, decor):
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def emissive_triangles(cfg: WorldConfig, world, mats, blocks: BlockRegistry,
+                       decor):
     """Host scan of the exception list → (voxel_key, ordinal, v0, e1, e2,
-    radiance, is_entity) for every emissive triangle.  `decor` is an
-    assets.decorations.DecorationMeshes."""
-    exc_key = world.exc_key.cpu().numpy()
-    exc_id = world.exc_id.cpu().numpy()
+    radiance, is_entity) for every emissive triangle.  `world` has
+    exc_key / exc_id and `mats` block_to_mat / emissive, as tensors or
+    host arrays; `decor` is an assets.decorations.DecorationMeshes."""
+    exc_key = _host(world.exc_key)
+    exc_id = _host(world.exc_id)
     emissive_ids = set(blocks.emissive_ids)
-    b2m = mats.block_to_mat.cpu().numpy()
-    emis = mats.emissive.cpu().numpy()
+    b2m = _host(mats.block_to_mat)
+    emis = _host(mats.emissive)
     out = []
     for i in range(exc_key.shape[0]):
         if exc_key[i] >= EXC_EMPTY or int(exc_id[i]) not in emissive_ids:
@@ -97,21 +107,18 @@ def emissive_triangles(cfg: WorldConfig, world: VoxelWorld, mats,
 
 
 def light_table_from_numpy(arrays: dict, device="cpu") -> LightTable:
-    fields = {}
-    for f in LightTable._fields:
-        if f == "count":
-            fields[f] = int(arrays[f])
-        else:
-            fields[f] = torch.from_numpy(
-                np.ascontiguousarray(arrays[f])).to(device)
-    return LightTable(**fields)
+    # np.array copies (count stays 0-d: ascontiguousarray would make it 1-d)
+    return LightTable(**{
+        f: torch.from_numpy(np.array(arrays[f], np.int32) if f == "count"
+                            else np.ascontiguousarray(arrays[f])).to(device)
+        for f in LightTable._fields})
 
 
-def build_light_table(cfg: WorldConfig, world: VoxelWorld, mats,
-                      blocks: BlockRegistry, decor, k: int | None = None,
-                      device="cpu") -> LightTable:
-    """Extract emissive triangles and build the sampling alias table; K is
-    the next power of two ≥ the triangle count (min 8)."""
+def build_light_arrays(cfg: WorldConfig, world, mats, blocks: BlockRegistry,
+                       decor, k: int | None = None) -> dict:
+    """The light table as host arrays (LightTable's fields; `count` a 0-d
+    int32 array): the emissive triangles and their sampling alias table;
+    K is the next power of two ≥ the triangle count (min 8)."""
     tris = emissive_triangles(cfg, world, mats, blocks, decor)
     if k is None:
         k = 8
@@ -153,31 +160,40 @@ def build_light_table(cfg: WorldConfig, world: VoxelWorld, mats,
         e2x=e2[:, 0], e2y=e2[:, 1], e2z=e2[:, 2],
         nx=nrm[:, 0], ny=nrm[:, 1], nz=nrm[:, 2], area=area,
         rad_r=rad[:, 0], rad_g=rad[:, 1], rad_b=rad[:, 2],
-        key=key, ent=ent, active=active, count=int(active.sum()),
+        key=key, ent=ent, active=active,
+        count=np.asarray(active.sum(), np.int32),
         prob=table.prob, alias=table.alias, pmf=table.pmf)
-    return light_table_from_numpy(arrays, device)
+    return {f: a if f == "count" else np.ascontiguousarray(a)
+            for f, a in arrays.items()}
 
 
-def light_slot_of(lights: LightTable, voxel_key: int, ordinal: int) -> int:
-    keys = lights.key.cpu().numpy()
+def build_light_table(cfg: WorldConfig, world, mats, blocks: BlockRegistry,
+                      decor, k: int | None = None,
+                      device="cpu") -> LightTable:
+    """build_light_arrays on `device`."""
+    return light_table_from_numpy(
+        build_light_arrays(cfg, world, mats, blocks, decor, k), device)
+
+
+def light_slot_of(keys: np.ndarray, voxel_key: int, ordinal: int) -> int:
+    """The slot of light (voxel_key, ordinal) in a table's host keys, or
+    -1."""
     hits = np.nonzero(keys == voxel_key * 16 + ordinal)[0]
     return int(hits[0]) if len(hits) else -1
 
 
-def light_id_remap(prev_lights: LightTable, lights: LightTable
-                   ) -> torch.Tensor:
-    """(K_prev,) int32 on the new table's device: previous light slot →
-    current slot (-1 where the light is gone), matched by identity key;
-    feeds the ReSTIR reservoirs' slot remap across an edit."""
-    prev_key = prev_lights.key.cpu().numpy()
-    cur_key = lights.key.cpu().numpy()
+def light_id_remap_np(prev_key: np.ndarray, cur_key: np.ndarray
+                      ) -> np.ndarray:
+    """(K_prev,) int32: previous light slot → current slot (-1 where the
+    light is gone), matched by identity key; feeds the ReSTIR
+    reservoirs' slot remap across an edit."""
     cur_pos = {int(kk): i for i, kk in enumerate(cur_key)
                if kk < LIGHT_KEY_EMPTY}
     remap = np.full(prev_key.shape[0], -1, np.int32)
     for i, kk in enumerate(prev_key):
         if kk < LIGHT_KEY_EMPTY and int(kk) in cur_pos:
             remap[i] = cur_pos[int(kk)]
-    return torch.from_numpy(remap).to(lights.key.device)
+    return remap
 
 
 # ---------------------------------------------------------------------------

@@ -82,6 +82,14 @@ class VoxelWorld(NamedTuple):
     maxh_super: torch.Tensor  # (128,) int32
 
 
+class HostWorld(NamedTuple):
+    """The engine's host copy of the block grid, (X, Y, Z) uint8, and the
+    world version the engine bumps on every edit (the key a reader of the
+    grid caches by: the device tables are written in place)."""
+    blocks: np.ndarray
+    version: int
+
+
 def pack_schema(h1, h2, id_deep, id_mid, id_surf):
     return (np.asarray(h1, np.int32) | (np.asarray(h2, np.int32) << 5)
             | (np.asarray(id_deep, np.int32) << 10)
@@ -202,14 +210,23 @@ def build_tables(cfg: WorldConfig, blocks, schema, nonsolid_ids: tuple = (),
                             device)
 
 
-def exception_count(cfg: WorldConfig, world: VoxelWorld) -> int:
-    """Number of voxels deviating from the column schema.  Past
-    cfg.max_exceptions the list keeps the lowest keys and drops the rest
-    (Engine._after_edit grows it first)."""
-    blocks = world.blocks.cpu().numpy()
-    pred = predicted_blocks(cfg, world.schema.cpu().numpy(),
-                            world.colmask.cpu().numpy())
+def exception_count_np(cfg: WorldConfig, tables: dict) -> int:
+    """Number of voxels deviating from the column schema, from host tables
+    (build_tables_np's).  Past cfg.max_exceptions the list keeps the
+    lowest keys and drops the rest (Engine._after_edit grows it first)."""
+    pred = predicted_blocks(cfg, tables["schema"], tables["colmask"])
+    blocks = tables["blocks"]
     return int(np.sum((blocks != AIR) & (blocks != pred)))
+
+
+def world_to_numpy(world: VoxelWorld) -> dict:
+    """The world's tables as host arrays (build_tables_np's layout)."""
+    return {f: getattr(world, f).cpu().numpy() for f in VoxelWorld._fields}
+
+
+def exception_count(cfg: WorldConfig, world: VoxelWorld) -> int:
+    """exception_count_np of a device world."""
+    return exception_count_np(cfg, world_to_numpy(world))
 
 
 def set_blocks(cfg: WorldConfig, world: VoxelWorld, xyz, ids,

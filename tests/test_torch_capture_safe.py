@@ -126,3 +126,36 @@ def test_camera_and_staging_read_nothing(engine):
     assert float(eng.camera.pitch) == pytest.approx(-0.3)
     # the history camera is the pose before the first move
     assert float(eng.history_camera.yaw) == pytest.approx(yaw0)
+
+
+def test_walk_pack_and_edits_read_nothing():
+    """A walking character's update (against the engine's host grid) and
+    the soup's pack touch the device neither way (the pose matrices go
+    through the engine's staged buffer); an edit written in place and its
+    undo read nothing back (their host-built tables are uploads by
+    design, outside any frame); then a frame, as clean as any other."""
+    import numpy as np
+    from rtvb_tpu_torch.models.character import Character
+    eng = Engine(settings=Settings().replace(rendering={
+        "render_width": SIZE, "render_height": SIZE}), device="cpu")
+    ch = Character(cfg_world=eng.cfg, move=eng.settings.character_movement)
+    ch.position = np.array([31.5, 8.0, 45.0], np.float32)
+    ch._update_pose()
+    eng.add_entity(ch.entity)
+    eng._eager_frame()              # caches filled, as before a capture
+    x, z = 20, 30
+    y = int(eng.host_world.blocks[x, :, z].nonzero()[0].max()) + 1
+    with HostTouches() as mode:
+        for _ in range(2):
+            ch.update(eng.host_world, 1.0 / 30.0, (1.0, 0.0))
+            eng.entity_buffers()
+    assert mode.seen == [] and mode.allowed == 0, mode.seen
+    with HostTouches() as mode:
+        eng.set_block(x, y, z, PB.SAND)
+        eng.set_block(x, y, z, 0)
+        ch.update(eng.host_world, 1.0 / 30.0, (1.0, 0.0))
+    reads = [s for s in mode.seen if s[0] == "host read"]
+    assert reads == [] and mode.allowed == 0, reads
+    assert ch._blocks_cache[0] == eng.world_version == 2
+    mode = _frames_clean(eng, lambda e: e._eager_frame())
+    assert mode.allowed > 0

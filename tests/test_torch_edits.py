@@ -257,3 +257,111 @@ def test_pick_block_matches_jax(pose, hits):
     if hits:
         assert pp[1] == jp[1]
         assert pp[2] == jp[2]
+
+
+# ---------------------------------------------------------------------------
+# edits in place: the graph's key stands unless a shape changes
+# ---------------------------------------------------------------------------
+
+def _graph_key(pe):
+    """What a captured frame is keyed by (Engine._graph_frames): the
+    identity of every tensor it reads (addresses, shapes, and the value
+    of every non-tensor leaf), the world configuration, the trace
+    parameters and the local-light count."""
+    from rtvb_tpu_torch.render import frame_graph
+    pe._ensure_states()
+    pe.entity_buffers()
+    pe._stage()
+    return (frame_graph.identity(pe._graph_inputs()), pe.cfg, pe._tp,
+            pe._n_local)
+
+
+def _assert_tables_fresh(pe):
+    """Every device table equals a fresh rebuild from the device's own
+    block grid, bit for bit: the world's tables, the trace tables, the
+    light table, the soup's static rows."""
+    from rtvb_tpu_torch.ops.dda import trace_tables
+    from rtvb_tpu_torch.render import soup as soup_mod
+    from rtvb_tpu_torch.world import lighting as plight
+    blocks = pe.world.blocks.numpy()
+    fresh = pvoxel.build_tables_np(pe.cfg, blocks, pe.world.schema.numpy(),
+                                   pe._nonsolid_ids())
+    for f in pvoxel.VoxelWorld._fields:
+        np.testing.assert_array_equal(getattr(pe.world, f).numpy(),
+                                      fresh[f], err_msg=f)
+    fresh_world = pvoxel.world_from_numpy(fresh)
+    for f, a, b in zip(pe._tables._fields, pe._tables,
+                       trace_tables(fresh_world, pe.materials)):
+        assert torch.equal(a, b), f
+    lights = plight.build_light_table(pe.cfg, fresh_world, pe.materials,
+                                      pe.block_registry, pe.decor)
+    for f, a, b in zip(lights._fields, pe.lights, lights):
+        assert torch.equal(a, b), f
+    ent = pe.entity_buffers()
+    decor = pe._decoration_triangles()
+    rebuilt = Engine(settings=_settings(), device="cpu")
+    rebuilt.world = fresh_world
+    rebuilt._tables = trace_tables(fresh_world, rebuilt.materials)
+    rebuilt.lights = lights
+    for a, b in zip(decor, rebuilt._decoration_triangles()):
+        np.testing.assert_array_equal(a, b)
+    want = soup_mod.static_arrays(ent.tri_packed.shape[0], decor, [])
+    for f in want:
+        np.testing.assert_array_equal(getattr(ent, f).numpy(), want[f],
+                                      err_msg=f)
+
+
+@pytest.mark.parametrize("edit", ["dirt block", "dig terrain",
+                                  "flower removed"])
+def test_edit_keeping_shapes_keeps_the_graph_key(edit):
+    """An edit that changes no table's shape writes the tables in place:
+    the graph's key is unchanged, every table equals a fresh rebuild, and
+    the world, lights and soup equal the JAX engine's after the same
+    edit.  Removing a flower rewrites the decoration rows in place (12
+    rows of the 16 stand, the rest padding)."""
+    je, pe = _engines()
+    key0 = _graph_key(pe)
+    ptrs = [t.data_ptr() for t in pe.world] + \
+        [t.data_ptr() for t in pe.lights]
+    if edit == "flower removed":
+        x, y, z = (int(v) for v in np.argwhere(
+            pe.world.blocks.numpy() == PB.FLOWER)[0])
+        bid = 0
+    else:
+        x, z = 20, 30
+        h = int(np.asarray(je.world.blocks[x, :, z]).nonzero()[0].max())
+        y, bid = (h + 1, PB.SOIL) if edit == "dirt block" else (h, 0)
+    je.set_block(x, y, z, bid)
+    pe.set_block(x, y, z, bid)
+    assert _graph_key(pe) == key0
+    assert [t.data_ptr() for t in pe.world] + \
+        [t.data_ptr() for t in pe.lights] == ptrs
+    assert pe.world_version == 1 and pe.host_world.version == 1
+    _assert_tables_fresh(pe)
+    _assert_world_equal(je.world, pe.world)
+    _assert_soup_equal(je, pe)
+    if edit == "flower removed":
+        assert int((pe.entity_buffers().tri_packed != 0).any(-1).sum()) == 12
+
+
+@pytest.mark.parametrize("edit", ["500 bricks", "first lantern"])
+def test_growing_edit_changes_the_graph_key(edit):
+    """An edit the JAX package compiles anew for changes the key: 500
+    bricks grow the exception list past its 128 entries; the first
+    lantern changes the light table's K (8 → 16), the local-light count
+    (0 → 8) and the soup's rows (16 → 64)."""
+    pe = Engine(settings=_settings(), device="cpu")
+    key0 = _graph_key(pe)
+    if edit == "500 bricks":
+        xs, zs = np.meshgrid(np.arange(5, 55), np.arange(5, 15))
+        xyz = np.stack([xs.ravel(), np.full(xs.size, 28), zs.ravel()], 1)
+        pe.set_blocks(xyz, np.full(len(xyz), PB.BRICK, np.uint8))
+        assert pe.cfg.max_exceptions == 1024
+    else:
+        x, z = LANTERN_XZ
+        h = int(pe.world.blocks[x, :, z].nonzero().max())
+        pe.set_block(x, h + 1, z, PB.LANTERN)
+        assert pe._n_local == 8 and pe.lights.key.shape[0] == 16
+        assert pe.entity_buffers().tri_packed.shape[0] == 64
+    assert _graph_key(pe) != key0
+    _assert_tables_fresh(pe)

@@ -85,12 +85,15 @@ def _jax_post_fn(je):
     return jax.jit(post)
 
 
-def _two_frames(settings, trace_denoise):
+def _two_frames(settings, trace_denoise, setup=None, step=None):
     """Two JAX frames of `settings` (trace + denoise through the shared
     jitted `trace_denoise`); after each, a port engine holding the state
-    the JAX engine had BEFORE that frame."""
+    the JAX engine had BEFORE that frame.  setup(je), if given, runs on
+    the new JAX engine (entities, camera), step(je) after each frame."""
     je = JEngine(settings=JSettings.from_dict(settings.to_dict()),
                  backend="xla")
+    if setup is not None:
+        setup(je)
     assert (je.width, je.height) == (W, H)
     assert je.settings.rendering.fused_shading
     je.restir_state = _commit(jrestir.initial_state(H, W))
@@ -110,6 +113,8 @@ def _two_frames(settings, trace_denoise):
         je.restir_state, je.denoiser_state, je.post_state = nr, nd, npost
         je.frame_index += 1
         je.history_camera = je.camera
+        if step is not None:
+            step(je)
     return out
 
 

@@ -37,9 +37,17 @@ that grows the exception list and the dev-panel settings in frames on
 the card, K1 to the bit on the grown list.  The frame as a CUDA graph
 at 320×180 (chip_smoke's graph checks): the 8-frame batch against eager
 frames of a copy, bit for bit, natively and at the 1/2 rung; one-frame
-replays along the flythrough and after an edit; K4's generic instance
-replayed; launch counts under replay; graph memory flat over 20 edits;
-a new capture after each call that replaces what a graph reads."""
+replays along the flythrough and after an edit (written in place: no
+capture); K4's generic instance replayed; launch counts under replay;
+graph memory flat over 20 edits; a new capture after each call that
+replaces what a graph reads, none after an overlay (written in place).
+Live entities at 320×180 (chip_smoke's
+entities phase): a walking character's replays against eager frames of
+a copy, bit for bit, with one capture and none over 10 more frames, by
+day (a 128-row soup) and at night with the lantern (256 rows); K2 on
+that frame's own five launches and K3 on its own call, bit for bit;
+edits that keep the shapes replayed bit-exact without a capture, a
+growing edit captured once."""
 import numpy as np
 import pytest
 import torch
@@ -726,7 +734,7 @@ def test_graph_batch_matches_eager_frames(cuda, scale):
 def test_graph_replay_along_flythrough_and_after_edit(cuda):
     import chip_smoke
     got = chip_smoke.graph_flythrough_vs_eager(_graph_settings())
-    assert got["frames"] == 10 and len(got["graph_log"]) == 2
+    assert got["frames"] == 10 and len(got["graph_log"]) == 1
 
 
 def test_graph_replay_k4_generic_instance(cuda):
@@ -747,16 +755,15 @@ def test_graph_memory_flat_over_edits(cuda):
     import chip_smoke
     from rtvb_tpu_torch.render.renderer import Engine
     eng = Engine(settings=_graph_settings(), device=cuda)
-    chip_smoke.graph_memory_cycles(eng, 20)
-    assert len(eng.graph_log) == 20
+    eng.render_realtime_device()
+    chip_smoke.memory_cycles(eng, None, 20)
+    assert len(eng.graph_log) == 1
 
 
-@pytest.mark.parametrize("change", ["set_block", "set_sky", "apply_settings",
-                                    "set_render_scale", "set_ui_overlay"])
-def test_graph_recaptured_after_a_change(cuda, change):
-    """Each call that replaces a tensor the graph reads: the next frame
-    captures anew (the stale graph is released, never replayed) and the
-    replays after it equal eager frames of a copy, bit for bit."""
+def _replays_after(cuda, change):
+    """`change` on an engine that has captured its frame and on a copy of
+    it, then 3 replays against eager frames of the copy, bit for bit →
+    (captures after the change, graphs held)."""
     import copy
 
     import chip_smoke
@@ -769,7 +776,7 @@ def test_graph_recaptured_after_a_change(cuda, change):
     ov[10:30, 20:90] = (200, 40, 40, 200)
     for e in (eng, ref):
         if change == "set_block":
-            e.set_block(30, 25, 30, B.BRICK)
+            e.set_block(30, 25, 30, B.LANTERN)
         elif change == "set_sky":
             e.set_sky(time_of_day=8.0)
         elif change == "apply_settings":
@@ -781,7 +788,96 @@ def test_graph_recaptured_after_a_change(cuda, change):
             e.set_ui_overlay(ov)
     n = len(eng.graph_log)
     for i in range(3):
-        chip_smoke.frames_equal(eng.render_realtime_device(),
-                                ref._eager_frame(), f"{change} frame {i}")
+        out = eng.render_realtime_device()
+        chip_smoke.frames_equal(out, ref._eager_frame(),
+                                f"{change} frame {i}")
         chip_smoke.states_equal(eng, ref, f"{change} frame {i}")
-    assert len(eng.graph_log) == n + 1 and len(eng._graphs) == 1
+    if change == "set_ui_overlay":
+        assert (out[20, 50].cpu().numpy() != 0).any()
+    return len(eng.graph_log) - n, len(eng._graphs)
+
+
+@pytest.mark.parametrize("change", ["set_block", "set_sky", "apply_settings",
+                                    "set_render_scale"])
+def test_graph_recaptured_after_a_change(cuda, change):
+    """Each call that replaces a tensor the graph reads: the next frame
+    captures anew (the stale graph is released, never replayed) and the
+    replays after it equal eager frames of a copy, bit for bit.  The
+    edit is the first lantern (it grows the light table and the soup and
+    lights the frame): an edit that keeps the shapes replays on
+    (test_entity_edits_keep_the_graph)."""
+    assert _replays_after(cuda, change) == (1, 1)
+
+
+def test_graph_replays_after_an_overlay(cuda):
+    """set_ui_overlay writes the overlay in place: the graph replays on,
+    the replays equal eager frames of a copy with the same overlay."""
+    assert _replays_after(cuda, "set_ui_overlay") == (0, 1)
+
+
+# ---------------------------------------------------------------------------
+# live entities: a walking character in the captured frame (chip_smoke's
+# entities phase at 320×180)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("lantern", [False, True])
+def test_entity_walk_replays_match_eager(cuda, lantern):
+    """10 replays of a walking character against eager frames of a copy,
+    bit for bit, with one capture; then 10 more walking frames capture
+    nothing (graph_log does not grow)."""
+    import chip_smoke
+    eng, ch = chip_smoke.entity_engine(
+        _graph_settings(block_highlight=True), lantern)
+    got = chip_smoke.entity_walk_vs_eager(eng, ch, 10)
+    assert got["captures"] == 1
+    assert got["soup_rows"] == (256 if lantern else 128)
+    n = len(eng.graph_log)
+    for _ in range(10):
+        chip_smoke.walk(ch, eng)
+        eng.render_realtime_device()
+    assert len(eng.graph_log) == n
+
+
+@pytest.mark.parametrize("lantern", [False, True])
+def test_entity_frame_tri_and_texture_match_plain(cuda, lantern):
+    """K2 on the frame's own five launches against the soup with the
+    character and K3 on the frame's own call, bit for bit."""
+    import chip_smoke
+    eng, ch = chip_smoke.entity_engine(
+        _graph_settings(block_highlight=True), lantern)
+    for _ in range(2):
+        chip_smoke.walk(ch, eng)
+        eng.render_realtime_device()
+    rep = chip_smoke.Report()
+    got = chip_smoke.entity_kernel_cases(eng, rep, "entity frame")
+    assert got["rows"] == (256 if lantern else 128)
+    assert got["character_pixels"] > 0
+    assert [c["kernel"] for c in rep.cases] == ["tri"] * 5 + ["texture"]
+
+
+def test_entity_edits_keep_the_graph(cuda):
+    """Edits that keep every table's shape: no recapture, and the replays
+    after them equal eager frames of a copy, bit for bit; a growing edit
+    captures once."""
+    import copy
+
+    import chip_smoke
+    from rtvb_tpu_torch.assets import blocks as B
+    eng, ch = chip_smoke.entity_engine(
+        _graph_settings(block_highlight=True), False)
+    eng.render_realtime_device()
+    got = chip_smoke.edits_keeping_shapes(eng, ch, 4)
+    assert got["recaptures"] == 0
+    ref = copy.copy(eng)
+    n = len(eng.graph_log)
+    x, z = 30, 12
+    y = int(eng.host_world.blocks[x, :, z].nonzero()[0].max()) + 1
+    for i in range(3):
+        for e in (eng, ref):
+            e.set_block(x, y, z, B.SAND if i % 2 == 0 else 0)
+        chip_smoke.walk(ch, eng)
+        chip_smoke.frames_equal(eng.render_realtime_device(),
+                                ref._eager_frame(), f"edit {i}")
+        chip_smoke.states_equal(eng, ref, f"edit {i}")
+    assert len(eng.graph_log) == n
+    assert chip_smoke.growing_edit(eng)["recaptures"] == 1

@@ -1,9 +1,10 @@
 """The port never imports JAX nor the JAX package `rtvb_tpu`: in a fresh
 interpreter, import every rtvb_tpu_torch module, build a 32×32
 Engine(device="cpu") with the shipped settings and render one frame at
-native resolution and one at the 1/2 rung (EASU) (the frames catch lazy
-imports, such as a mesh loader reached only while building the decoration
-soup), then check sys.modules.  A scan of the sources catches import lines on
+native resolution, one at the 1/2 rung (EASU) and one with a walking
+character (the frames catch lazy imports, such as the model loader
+reached only while building the soup or the character), then check
+sys.modules.  A scan of the sources catches import lines on
 paths the frame does not reach."""
 import os
 import pkgutil
@@ -33,6 +34,12 @@ eng.set_render_scale(0.5)                  # the 1/2 rung: EASU upscale
 assert (eng.width, eng.height) == (16, 16)
 out = eng.render_realtime()
 assert out.shape == (32, 32, 3), out.shape
+from rtvb_tpu_torch.models.character import Character
+ch = Character(cfg_world=eng.cfg)           # loads data/models/character.glb
+eng.add_entity(ch.entity)
+ch.update(eng.host_world, 1.0 / 30.0, (1.0, 0.0))
+out = eng.render_realtime()                 # the walking character's frame
+assert eng.entity_buffers().tri_packed.shape == (128, 9)
 leaked = sorted(m for m in sys.modules
                 if m in ("jax", "rtvb_tpu") or m.startswith(("jax.",
                                                              "rtvb_tpu.")))
