@@ -102,7 +102,30 @@
    engine the eager frame, the one-frame replay and the batch's time a
    frame, capture ms, peak memory with and without graphs, profiles of
    replays and of eager frames, and live and reserved memory over 20
-   edit-and-frame cycles (flat, no capture).
+   edit-and-frame cycles (flat, no capture);
+12. the interactive app (apps/interactive.py) at 1920×1080 with the app's
+   settings (shipped + block_highlight, dynamic resolution on), driven
+   through its own loop and its own StdinInputSource by scripted keys: the
+   MainMenu, NEW GAME, CREATE; the dev panel and one live setting
+   (tone_mapping.gain); look down, descend, dig, select the lantern and
+   place it; wait for dynamic resolution to hold a rung; the first-person
+   camera with the character walking; F5; quit.  Its launch counts reset
+   just before and read just after; it checks that the captures are the
+   rule's (the first frame, each new rung, the dev-panel edit, the
+   lantern), that K7 launched once for each frame below scale 1, that the
+   scales are a fresh controller's on the recorded times, that every
+   presented frame is 1080×1920 u8 and not blank, that the saved world
+   loads back bit for bit and that the first replay after the edit equals
+   an eager frame of a copy, bit for bit; it prints the tracker's summary
+   row, the completed-frame ms, the scales and the captures;
+13. the offline app (apps/offline.py) against data/canonical's goldens at
+   their own sizes and frame counts (the 128² canonical, the 512² one,
+   the three scripted edit sequences at 96², the flythrough's frame 16):
+   each verdict with RMSE, SSIM and diff share, held to "close" where the
+   JAX package itself meets the golden and otherwise to the reference's
+   own miss; each accumulated golden's card frame is held to the port's
+   CPU render of the same run at "close" (the 512² run at its frame 4);
+   then the accumulated frame's ms at 512² and 720², in turns.
 
 Exits non-zero, without the final line, on any failure or without a card.
 The last line is {"ok": true, "device": {...}}; the line before it lists
@@ -118,6 +141,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -2224,6 +2248,539 @@ def graph_phase(shipped, K) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The interactive app: a scripted keyboard session through its own loop
+# ---------------------------------------------------------------------------
+
+SESSION_GAIN_FIELD = "tone_mapping.gain"   # the one setting edited live
+SESSION_REACH = 5.0      # the player descends until the ground is this close
+SESSION_SETTLE = 12      # frames at one scale before the character walks
+SESSION_SETTLE_CAP = 80  # ... or this many frames of waiting
+SESSION_WALK = 20        # frames the character walks
+SESSION_PANEL_PX = 256   # columns the dev panel may cover (ui/overlay.py)
+
+
+class ScriptedKeys:
+    """The keys a player types, one line a frame, written into a pipe that
+    the app's own StdinInputSource reads (select on the descriptor, one
+    line a frame, so no line waits in the stream's buffer).  `steps(app,
+    keys)` is a generator of lines: between lines it may look at the
+    engine's host copies, as a player looks at the screen.  Records the
+    frame each marked key was sent at and, at each frame's input, the
+    engine's number of captures so far."""
+
+    def __init__(self, app, steps):
+        from rtvb_tpu_torch.apps.interactive import StdinInputSource
+        r, w = os.pipe()
+        self._rf, self._wf = os.fdopen(r, "r"), os.fdopen(w, "w")
+        self.src = StdinInputSource(stream=self._rf)
+        self.app = app
+        self.steps = steps
+        self.lines: list[str] = []
+        self.marks: dict = {}
+        self.captures_before: list[int] = []
+        self._gen = None
+
+    def mark(self, label):
+        """The key about to be sent is `label`'s (its frame recorded)."""
+        self.marks[label] = len(self.lines)
+
+    def __call__(self, frame):
+        if self._gen is None:
+            self._gen = self.steps(self.app, self)
+        self.captures_before.append(len(self.app.engine.graph_log))
+        line = next(self._gen, "quit")
+        self.lines.append(line)
+        self._wf.write(line + "\n")
+        self._wf.flush()
+        return self.src(frame)
+
+    def close(self):
+        self._wf.close()
+        self._rf.close()
+
+
+def height_above_ground(eng) -> float:
+    """The camera's height over the top of the column under it, from the
+    engine's host copies."""
+    (x, y, z), _, _ = eng.camera_pose()
+    col = eng.host_world.blocks[int(np.clip(x, 0, eng.cfg.x - 1)), :,
+                                int(np.clip(z, 0, eng.cfg.z - 1))]
+    solid = np.nonzero(col)[0]
+    return y - (float(solid.max()) + 1.0 if solid.size else 0.0)
+
+
+def session_steps(app, keys):
+    """The session: boot into MainMenu, NEW GAME → CREATE; the dev panel,
+    the cursor down to tone_mapping.gain and `+` (one live setting: the
+    next frame captures, the one after it is compared with an eager frame
+    of a copy); look down and descend until the ground is in reach, dig
+    (`x`), select the lantern (12) and place it (`b`) on the face under the
+    dug block; wait until dynamic resolution holds one rung (a capture's
+    long frame would step the falling character through the ground); `c`
+    (the first-person camera: the character starts to fall), `c` again
+    (the follow camera) and the character walks with `w`, the view raised
+    again; F5; quit."""
+    eng = app.engine
+    names = [n for n, _ in app.settings.value_list()]
+    keys.mark("menu")
+    yield ""                                   # the MainMenu
+    yield "enter"                              # NEW GAME
+    yield "enter"                              # CREATE → Gameplay
+    keys.mark("dev panel")
+    yield "F3"
+    for _ in range(names.index(SESSION_GAIN_FIELD)):
+        yield "n"
+    keys.mark("edit")
+    yield "+"
+    eng.compare_armed = True                   # the first replay after it
+    yield " ".join(["k"] * 46)                 # look straight down
+    while height_above_ground(eng) > SESSION_REACH:
+        yield "q"
+    keys.mark("dig")
+    yield "x"
+    yield ""
+    keys.mark("lantern")
+    yield "12 b"
+    start = len(app.frame_scales)
+    while (len(app.frame_scales) - start < SESSION_SETTLE_CAP
+           and (len(app.frame_scales) < start + SESSION_SETTLE
+                or len(set(app.frame_scales[-SESSION_SETTLE:])) > 1)):
+        yield ""
+    keys.mark("first person")
+    yield "c"                                  # the camera at the eye
+    keys.mark("walk")
+    yield "c"                                  # the follow camera
+    yield " ".join(["w"] + ["i"] * 40)         # walk, looking up again
+    for _ in range(SESSION_WALK - 1):
+        yield "w"
+    keys.mark("save")
+    yield "F5"
+    yield "quit"
+
+
+def session_engine_class(K):
+    """The port's Engine, recording what the session checks: the scales
+    the app applies, the picks and edits with their frame, and the first
+    replay after `compare_armed` is set held against an eager frame of a
+    copy made just before it, bit for bit in frames and states (that eager
+    frame's launches kept apart from the session's)."""
+    from rtvb_tpu_torch.render.renderer import Engine
+
+    class SessionEngine(Engine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.scale_calls: list[float] = []
+            self.edits: list = []
+            self.picks: list = []
+            self.compare_armed = False
+            self.compared_at = None
+            self.twin_launches: dict = {}
+
+        def set_render_scale(self, scale):
+            self.scale_calls.append(scale)
+            return super().set_render_scale(scale)
+
+        def pick_block(self, *a, **kw):
+            got = super().pick_block(*a, **kw)
+            self.picks.append((self.frame_index, got))
+            return got
+
+        def set_blocks(self, xyz, ids):
+            self.edits.append((self.frame_index,
+                               np.asarray(xyz).reshape(-1, 3).tolist(),
+                               np.asarray(ids).reshape(-1).tolist()))
+            return super().set_blocks(xyz, ids)
+
+        def render_realtime_device(self, dt=1.0 / 60.0):
+            if not self.compare_armed:
+                return super().render_realtime_device(dt)
+            twin = copy.copy(self)
+            n = len(self.graph_log)
+            out = super().render_realtime_device(dt)
+            if len(self.graph_log) == n:          # a replay
+                before = K.launch_counts()
+                want = twin._eager_frame(dt)
+                after = K.launch_counts()
+                self.twin_launches = {k: after[k] - before.get(k, 0)
+                                      for k in after}
+                frames_equal(out, want, "the frame after the dev-panel edit")
+                states_equal(self, twin, "the frame after the dev-panel "
+                             "edit")
+                self.compared_at = self.frame_index - 1
+                self.compare_armed = False
+            return out
+
+    return SessionEngine
+
+
+class SessionPresenter:
+    """Takes each frame the app presents: its shape, type and device
+    checked on the spot, the mean and spread of its scene (right of the
+    dev panel) reduced on the card (read once after the session); keeps
+    the menu's first frame, the dev panel's (the frame before the edit),
+    the lantern's (two frames after it) and the last."""
+
+    def __init__(self):
+        self.keys = None
+        self.stats = []
+        self.kept = {}
+        self.shapes = set()
+
+    def present(self, frame, index):
+        import torch
+        self.shapes.add((tuple(frame.shape), frame.dtype, frame.device.type))
+        # the scene right of the dev panel (its 240 px and margins)
+        f = frame[:, SESSION_PANEL_PX:].float()
+        self.stats.append((index, torch.stack([f.mean(), f.std()])))
+        marks = self.keys.marks
+        if index == 1:              # frame 0's overlay is drawn after it
+            self.kept["menu"] = frame
+        elif index == marks.get("edit", -9) - 1:
+            self.kept["dev panel"] = frame
+        elif index == marks.get("lantern", -9) + 2:
+            self.kept["lantern"] = frame
+        elif "walk" in marks and index > marks["walk"]:
+            self.kept["walk"] = frame
+
+
+def interactive_session(K, width: int, height: int, worlds_dir: str,
+                        png_dir: str | None = None) -> dict:
+    """InteractiveApp on the card at width×height with the app's settings
+    (shipped + block_highlight, dynamic resolution on), driven through
+    its own StdinInputSource by `session_steps`; returns what it measured
+    and raises where a check fails: the captures equal the rule's (the
+    first frame, the first frame at each rung, the dev-panel edit, the
+    placed lantern; the dig, ordinary frames, the walk and the overlay
+    redraws capture nothing), K7's launches equal the frames below scale
+    1, the scales equal a fresh controller's on the recorded times, every
+    presented frame is (height, width, 3) u8 on the card and not blank,
+    the saved world loads back to the engine's host grid bit for bit, and
+    the first replay after the dev-panel edit equals an eager frame of a
+    copy of the engine bit for bit."""
+    import threading
+    import torch
+    from rtvb_tpu_torch.apps import interactive as app_mod
+    from rtvb_tpu_torch.assets import blocks as B
+    from rtvb_tpu_torch.core.config import Settings
+    from rtvb_tpu_torch.core.scene import SceneConfig
+    from rtvb_tpu_torch.world.persistence import WorldStore
+    settings = Settings().replace(rendering={
+        "render_width": width, "render_height": height,
+        "block_highlight": True})
+    rs = settings.rendering
+    check(rs.dynamic_resolution, "the app's settings run dynamic resolution")
+    store = WorldStore(worlds_dir)
+    pres = SessionPresenter()
+    app = app_mod.InteractiveApp(settings=settings, scene=SceneConfig(),
+                                 presenter=pres, store=store,
+                                 auto_start=False, device="cuda")
+    keys = ScriptedKeys(app, session_steps)
+    pres.keys = keys
+    saved_engine = app_mod.Engine
+    app_mod.Engine = session_engine_class(K)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        perf = app.run(keys)
+    finally:
+        app_mod.Engine = saved_engine
+        keys.close()
+    sync()
+    session_s = time.perf_counter() - t0
+    counts = K.launch_counts()
+    eng = app.engine
+    check(not any(t.name == "rtvb-light-variant-warmup"
+                  for t in threading.enumerate()),
+          "the light-variant warm-up outlived the session")
+    n = len(app.frame_scales)
+    marks = keys.marks
+    log(f"interactive session {width}x{height}: {n} frames in "
+        f"{session_s:.1f} s; keys at frames {marks}")
+
+    # the frames
+    check(pres.shapes == {((height, width, 3), torch.uint8, "cuda")},
+          f"presented frames {pres.shapes}")
+    idx = [i for i, _ in pres.stats]
+    check(sorted(idx) == list(range(n)), f"presented frames {idx} of {n}")
+    # every frame's scene is not blank, but the first-person frame's: the
+    # camera at the character's eye sits inside its own mesh (the JAX
+    # package's camera and soup; ROADMAP Queue 3)
+    stats = torch.stack([s for _, s in pres.stats]).cpu().numpy()
+    spread = {i: float(stats[k, 1]) for k, (i, _) in enumerate(pres.stats)}
+    blank = [i for i, v in spread.items()
+             if not v > 1.0 and i != marks["first person"]]
+    check(bool(np.isfinite(stats).all()) and not blank,
+          f"blank presented frames {blank}")
+
+    # the captures against the rule
+    captures_before = keys.captures_before + [len(eng.graph_log)]
+    per_frame = [captures_before[f + 1] - captures_before[f]
+                 for f in range(n)]
+    captured = [f for f in range(n) if per_frame[f]]
+    check(max(per_frame) == 1, f"captures a frame {per_frame}")
+    sizes = [eng._internal_size(s) for s in app.frame_scales]
+    rungs = [f for f in range(1, n) if sizes[f] != sizes[f - 1]]
+    lit = int(eng._host_lights()["count"]) > 0
+    predicted = sorted({0, marks["edit"], marks["lantern"], *rungs})
+    check(lit, "the session's lantern lit no light")
+    check(captured == predicted,
+          f"captures at frames {captured}, the rule predicts {predicted}")
+    capture_log = [dict(frame=f, key=list(g["key"]), eager_ms=g["eager_ms"],
+                        capture_ms=g["capture_ms"])
+                   for f, g in zip(captured, eng.graph_log)]
+    for c in capture_log:
+        log(f"  capture at frame {c['frame']}: key {c['key']}, its frame "
+            f"eager {c['eager_ms']:.3f} ms, capture {c['capture_ms']:.3f} ms")
+
+    # the edits: the dig, then the lantern in the dug cell
+    (dig_frame, dig), (lantern_frame, lantern) = eng.picks[0], eng.picks[1]
+    check(dig[0] and lantern[0], f"the session's picks {eng.picks}")
+    cell = tuple(int(v + d) for v, d in zip(lantern[1], lantern[2]))
+    check(tuple(dig[1]) == cell
+          and int(eng.host_world.blocks[cell]) == B.LANTERN,
+          f"the dig {dig} and the lantern {lantern}: the cell holds "
+          f"{int(eng.host_world.blocks[cell])}")
+    log(f"  dig at frame {marks['dig']}: {dig}; lantern at frame "
+        f"{marks['lantern']}: {lantern}; edits {eng.edits}")
+
+    # dynamic resolution: K7 once a frame below scale 1; the scales a
+    # fresh controller returns on the same times
+    twin = eng.twin_launches
+    easu = counts.get("easu", 0) - twin.get("easu", 0)
+    below = sum(s < 1.0 for s in app.frame_scales)
+    check(easu == below, f"session: easu launched {easu} times in {below} "
+          f"frames below scale 1")
+    fresh = app_mod.DynamicResolution(rs.target_fps, rs.min_render_scale,
+                                      start_scale=1.0)
+    replay = [fresh.update(t) for t in app.completed_ms]
+    check(replay == eng.scale_calls, "session: the scales differ from a "
+          "fresh controller's on the recorded times")
+    changes = [(f, app.frame_scales[f]) for f in [0] + rungs]
+    check(eng.compared_at is not None, "no replay after the dev-panel edit "
+          "was compared with an eager frame")
+    check(abs(app.settings.tone_mapping.gain - 1.25) < 1e-9,
+          f"the dev-panel edit: gain {app.settings.tone_mapping.gain}")
+    log(f"  the frame after the dev-panel edit (frame {eng.compared_at}, a "
+        f"replay) equals an eager frame of a copy, bit for bit")
+
+    # the save: F5 and the autosave; loaded back to the host grid
+    check(store.list_worlds() == ["default"], f"worlds {store.list_worlds()}")
+    cfg, world, cam, _ = store.load("default", eng._nonsolid_ids(),
+                                    device="cuda")
+    host = eng._host_tables()
+    for f in ("blocks", "schema", "colmask", "exc_mask", "df_super",
+              "maxh_super"):
+        check(np.array_equal(getattr(world, f).cpu().numpy(), host[f]),
+              f"the loaded world's {f} differs from the engine's host copy")
+    check(torch.equal(world.blocks, eng.world.blocks),
+          "the loaded grid differs from the engine's device grid")
+
+    # times: completed frames (what the controller is fed), and those at
+    # the settled rung that neither captured nor followed a capture
+    done = app.completed_ms
+    settled = app.frame_scales[-1]
+    steady = [t for i, t in enumerate(done)
+              if i + 3 < n and app.frame_scales[i + 3] == settled
+              and not per_frame[i + 3] and not per_frame[i + 2]]
+    row = perf.summary_row(f"interactive {width}x{height}")
+    log(f"  PerformanceTracker: {row}")
+    log(f"  completed-frame ms over {len(done)} frames: median "
+        f"{statistics.median(done):.3f}, min {min(done):.3f}, max "
+        f"{max(done):.3f}; at the settled rung {settled:.4f} without a "
+        f"capture ({len(steady)} frames): median "
+        f"{statistics.median(steady) if steady else float('nan'):.3f}, "
+        f"range {min(steady, default=float('nan')):.3f} - "
+        f"{max(steady, default=float('nan')):.3f}")
+    log(f"  scales: {changes}; launches over the session {counts}, of "
+        f"which the compared eager frame's {twin}")
+    if png_dir is not None:
+        from rtvb_tpu_torch.utils.image import write_png
+        os.makedirs(png_dir, exist_ok=True)
+        for label, frame in pres.kept.items():
+            write_png(os.path.join(png_dir, f"session_{label.replace(' ', '_')}"
+                                   ".png"), frame)
+        log(f"  frames written to {png_dir}: {sorted(pres.kept)}")
+    st = perf.stats()
+    return dict(frames=n, seconds=session_s, marks=marks,
+                captures=capture_log, predicted=predicted,
+                completed_ms=done, steady_ms=steady, scales=changes,
+                frame_scales=app.frame_scales, launches=counts,
+                twin_launches=twin, summary_row=row,
+                stage_ms={k: list(v) for k, v in st.items()},
+                compared_at=eng.compared_at, picks=eng.picks,
+                edits=eng.edits, camera_saved=cam)
+
+
+# ---------------------------------------------------------------------------
+# The offline app against the blessed goldens
+# ---------------------------------------------------------------------------
+
+CANONICAL = os.path.join(REPO, "data", "canonical")
+# each golden as the JAX package's tests and tools/bless_goldens.py render
+# it: (name, how, size, frames, flag)
+GOLDENS = [
+    ("canonical_render.png", "accumulated", 128, 8, None),
+    ("canonical_512.png", "offline", 512, 64, None),
+    ("scripted/sequence_final.png", "offline", 96, 12, "--test-sequence"),
+    ("scripted/remove20_final.png", "offline", 96, 44, "--test-remove20"),
+    ("scripted/remove_circle_final.png", "offline", 96, 44,
+     "--test-remove-circle"),
+    ("scripted/flythrough_f16.png", "flythrough", 96, 17, None),
+]
+PASSING = ("identical", "veryClose", "close")
+# The goldens the JAX package itself misses on the CPU: (RMSE, SSIM) of
+# its render against the golden, from `python tests/torch_goldens.py`
+# (this checkout's rtvb_tpu, the JAX tests' configuration).  Such a golden
+# cannot tell a right render from a wrong one; what checks the card there is
+# its CPU twin below.  The card's render is also held to the reference's
+# own miss, RMSE at most the reference's + 10% + 0.5 and SSIM at least the
+# reference's - 0.02 (two renders of one case differ by RMSE 2-4 from each
+# other, 1-spp noise, yet lie within 0.15 of each other from a golden),
+# which catches only a render far off.  The 1-spp flythrough frame is
+# reported, not required.
+REFERENCE_MISSES = {
+    "canonical_render.png": (29.357578083869946, 0.6470618225312109),
+    "canonical_512.png": (23.55552145017798, 0.745426293481131),
+    "scripted/sequence_final.png": (33.462013989124046, 0.6478062728867148),
+    "scripted/remove20_final.png": (35.06230348776383, 0.6427830176821754),
+    "scripted/remove_circle_final.png": (39.03876269512398,
+                                         0.8318271504623924),
+}
+# Each accumulated golden's CPU twin: the frames the port renders of the
+# same run on the CPU, whose last frame must be "close" or better to the
+# card's frame of that index.  The 512² run is cut to its first 4 frames
+# (16 times a 128² frame's work on the CPU), held against the card's saved
+# frame_0004.png of its 64-frame run.
+CPU_TWIN = {"canonical_render.png": 8, "canonical_512.png": 4,
+            "scripted/sequence_final.png": 12,
+            "scripted/remove20_final.png": 44,
+            "scripted/remove_circle_final.png": 44}
+
+
+def render_golden(how: str, size: int, frames: int, flag, device,
+                  out_dir: str, golden_path: str):
+    """One golden's render on `device` → (u8 image, offline.main's exit
+    code, or None where the Engine renders it directly)."""
+    from rtvb_tpu_torch.apps import offline
+    from rtvb_tpu_torch.core.config import Settings
+    from rtvb_tpu_torch.render.renderer import Engine
+    from rtvb_tpu_torch.utils.flypath import apply_flythrough
+    from rtvb_tpu_torch.utils.image import read_png, to_u8
+    if how == "offline":
+        argv = ["--width", str(size), "--height", str(size), "--frames",
+                str(frames), "--out-dir", out_dir, "--device", device,
+                "--canonical", golden_path, "--test-canonical"]
+        rc = offline.main(argv + ([flag] if flag else []))
+        return read_png(os.path.join(out_dir, f"frame_{frames:04d}.png")), rc
+    eng = Engine(settings=Settings(), width=size, height=size, device=device)
+    if how == "accumulated":
+        for _ in range(frames):
+            out = eng.render_accumulated()
+        return to_u8(out), None
+    pos0 = yaw0 = None                        # the flythrough's frame
+    for i in range(frames):
+        pos0, yaw0 = apply_flythrough(eng, i, 24, pos0, yaw0)
+        out = eng.render_realtime()
+    return out, None
+
+
+def offline_phase(K, out_root: str) -> dict:
+    """The port's offline path on the card against data/canonical: each
+    golden at its own size and frame count, its verdict with RMSE, SSIM
+    and diff share; offline.main's exit code (run with --test-canonical)
+    agrees with its verdict.  A golden the reference itself passes must be
+    "close" or better; one it misses is held to the reference's miss, and
+    each accumulated golden's card frame to its CPU twin at "close"."""
+    from rtvb_tpu_torch.utils import image_diff, native
+    from rtvb_tpu_torch.utils.image import read_png
+    log(f"  PNG encoder: {'native (build/native/)' if native.available() else 'PIL'}")
+    results = {}
+    for name, how, size, frames, flag in GOLDENS:
+        golden_path = os.path.join(CANONICAL, name)
+        golden = read_png(golden_path)
+        tag = os.path.basename(name)[:-4]
+        t0 = time.perf_counter()
+        card_dir = os.path.join(out_root, f"{tag}_cuda")
+        img, rc = render_golden(how, size, frames, flag, "cuda", card_dir,
+                                golden_path)
+        seconds = time.perf_counter() - t0
+        check(img.shape == golden.shape and img.std() > 1.0,
+              f"{name} on the card: {img.shape}, spread {img.std()}")
+        res = image_diff.compare(img, golden)
+        if rc is not None:
+            check(rc == (0 if res.verdict in PASSING else 1),
+                  f"{name}: offline.main exit {rc} for {res.verdict}")
+        row = dict(size=size, frames=frames, verdict=res.verdict,
+                   rmse=res.rmse, ssim=res.ssim,
+                   diff_fraction=res.diff_pixel_fraction, rc=rc,
+                   seconds=seconds)
+        log(f"  {name} ({size}², {frames} frames) on the card: {res}; "
+            f"exit {rc}; {seconds:.1f} s")
+        twin_frames = CPU_TWIN.get(name)
+        if twin_frames is not None:
+            t0 = time.perf_counter()
+            cpu, _ = render_golden(how, size, twin_frames, flag, "cpu",
+                                   os.path.join(out_root, f"{tag}_cpu"),
+                                   golden_path)
+            cpu_seconds = time.perf_counter() - t0
+            card = img if twin_frames == frames else read_png(
+                os.path.join(card_dir, f"frame_{twin_frames:04d}.png"))
+            twin = image_diff.compare(card, cpu)
+            row.update(card_vs_cpu=dict(frames=twin_frames,
+                                        verdict=twin.verdict, rmse=twin.rmse,
+                                        ssim=twin.ssim,
+                                        diff_fraction=twin.diff_pixel_fraction),
+                       cpu_seconds=cpu_seconds)
+            if twin_frames == frames:
+                cpu_res = image_diff.compare(cpu, golden)
+                row["cpu_vs_golden"] = dict(verdict=cpu_res.verdict,
+                                            rmse=cpu_res.rmse,
+                                            ssim=cpu_res.ssim)
+                log(f"    the port on the CPU: {cpu_res}")
+            log(f"    the card's frame {twin_frames} against the CPU's: "
+                f"{twin}; {cpu_seconds:.1f} s on the CPU")
+            check(twin.verdict in PASSING,
+                  f"{name}: the card's frame {twin_frames} against the CPU "
+                  f"{twin}")
+        ref = REFERENCE_MISSES.get(name)
+        if how == "flythrough":
+            row["required"] = "reported"
+        elif ref is None:
+            row["required"] = "close or better"
+            check(res.verdict in PASSING, f"{name}: {res}")
+        else:
+            row["required"] = "close to the CPU twin; the reference's miss"
+            row["reference"] = dict(rmse=ref[0], ssim=ref[1])
+            check(res.rmse <= ref[0] * 1.1 + 0.5 and res.ssim >= ref[1] - 0.02,
+                  f"{name}: {res} misses further than the reference "
+                  f"(RMSE {ref[0]}, SSIM {ref[1]})")
+        results[name] = row
+    return results
+
+
+def accumulated_ms(sizes=(512, 720), n_warm: int = 2,
+                   n_pairs: int = 8) -> dict:
+    """render_accumulated on the card at each size², the sizes in turns
+    (the order reversed every other turn): ms a frame.  It returns host
+    values, so each call is complete on return."""
+    from rtvb_tpu_torch.core.config import Settings
+    from rtvb_tpu_torch.render.renderer import Engine
+    engines = {size: Engine(settings=Settings(), width=size, height=size,
+                            device="cuda") for size in sizes}
+    for eng in engines.values():
+        for _ in range(n_warm):
+            eng.render_accumulated()
+    times = {size: [] for size in sizes}
+    for i in range(n_pairs):
+        for size in (sizes if i % 2 == 0 else sizes[::-1]):
+            t0 = time.perf_counter()
+            engines[size].render_accumulated()
+            times[size].append((time.perf_counter() - t0) * 1e3)
+    return {size: dict(median_ms=statistics.median(t), ms=t)
+            for size, t in times.items()}
+
+
 def ptxas_report(build_log: str) -> list:
     """Registers, static shared memory, stack frame and spills of each
     kernel entry in nvcc's -Xptxas -v output: [{kernel, registers, smem,
@@ -2551,6 +3108,32 @@ def main() -> int:
     # bit for bit, then their costs in turns
     graph = graph_phase(shipped, K)
 
+    phase("interactive")
+    # the interactive app's loop at 1920×1080: its own launch counts are
+    # reset right before the session and read right after (inside)
+    with tempfile.TemporaryDirectory() as worlds:
+        session = interactive_session(K, fw, fh, worlds, png_dir=LOG_DIR)
+    for name in KERNELS:
+        check(session["launches"].get(name, 0) > 0,
+              f"the interactive session never launched kernel {name}")
+
+    phase("offline")
+    # the offline app against the goldens; the accumulated path's launch
+    # counts reset right before and read right after
+    K.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as out_root:
+        goldens = offline_phase(K, out_root)
+    offline_counts = K.launch_counts()
+    log(f"launch counts over the offline phase: {offline_counts}")
+    for name in ("trace", "tri", "texture", "shade", "warp"):
+        check(offline_counts.get(name, 0) > 0,
+              f"the offline phase never launched kernel {name}")
+    accumulated = accumulated_ms()
+    for size, acc in accumulated.items():
+        log(f"accumulated frame {size}x{size} (render_accumulated, 1 spp "
+            f"a frame; 512² and 720² in turns) on {card}: median "
+            f"{acc['median_ms']:.3f} ms {[round(t, 3) for t in acc['ms']]}")
+
     # a frame's time of K1, K2, K4 and K6 from the launches the frame
     # makes: K1's and K2's five waves and K6's four steps as captured; K4
     # bounce 0 (case a) and bounces 1-2 (case f, the same instance and
@@ -2603,7 +3186,9 @@ def main() -> int:
                        rungs=rungs, rung_turns_ms=rung_turns,
                        profile_half_rung=prof_half, dynres_walk=walk,
                        gameplay=play, entities=entities, graph=graph,
-                       phase_s=phase_s,
+                       interactive=session, goldens=goldens,
+                       offline_launches=offline_counts,
+                       accumulated_ms=accumulated, phase_s=phase_s,
                        kernels=kernels), f, indent=1)
     phase("end")
     log(card)

@@ -47,7 +47,13 @@ a copy, bit for bit, with one capture and none over 10 more frames, by
 day (a 128-row soup) and at night with the lantern (256 rows); K2 on
 that frame's own five launches and K3 on its own call, bit for bit;
 edits that keep the shapes replayed bit-exact without a capture, a
-growing edit captured once."""
+growing edit captured once.  The apps (chip_smoke's interactive and
+offline phases): a scripted keyboard session at 320×180 through the
+interactive app's loop (captures as the rule predicts, frames not blank,
+the save loaded back, the replay after a live edit equal to an eager
+frame), and offline.main --test-canonical at 128²."""
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -881,3 +887,48 @@ def test_entity_edits_keep_the_graph(cuda):
         chip_smoke.states_equal(eng, ref, f"edit {i}")
     assert len(eng.graph_log) == n
     assert chip_smoke.growing_edit(eng)["recaptures"] == 1
+
+
+# ---------------------------------------------------------------------------
+# The apps on the card (chip_smoke's interactive and offline phases)
+# ---------------------------------------------------------------------------
+
+def test_interactive_session_on_card(cuda, tmp_path):
+    """chip_smoke's scripted keyboard session at 320×180 through the app's
+    own loop: the captures are the rule's (the first frame, each new rung,
+    the dev-panel edit, the lantern), K7 once a frame below scale 1, the
+    scales a fresh controller's, every presented frame u8 on the card and
+    not blank, the saved world loaded back bit for bit, the first replay
+    after the edit equal to an eager frame of a copy."""
+    import chip_smoke
+    got = chip_smoke.interactive_session(K, 320, 180,
+                                         str(tmp_path / "worlds"))
+    assert [c["frame"] for c in got["captures"]] == got["predicted"]
+    assert got["marks"]["edit"] in got["predicted"]
+    assert got["marks"]["lantern"] in got["predicted"]
+    assert got["compared_at"] is not None
+
+
+def test_offline_test_canonical_128_on_card(cuda, tmp_path):
+    """offline.main --test-canonical at 128² (8 accumulated frames) on the
+    card: its exit code follows its verdict against canonical_render.png,
+    the card's frame is "close" or better to the port's CPU render of the
+    same run, and it misses the golden no further than the JAX package
+    does on the CPU (chip_smoke.REFERENCE_MISSES)."""
+    import chip_smoke
+    from rtvb_tpu_torch.utils import image_diff
+    from rtvb_tpu_torch.utils.image import read_png
+    name = "canonical_render.png"
+    golden_path = os.path.join(chip_smoke.CANONICAL, name)
+    card, rc = chip_smoke.render_golden("offline", 128, 8, None, "cuda",
+                                        str(tmp_path / "card"), golden_path)
+    cpu, _ = chip_smoke.render_golden("accumulated", 128, 8, None, "cpu",
+                                      str(tmp_path / "cpu"), golden_path)
+    res = image_diff.compare(card, read_png(golden_path))
+    assert rc == (0 if res.verdict in chip_smoke.PASSING else 1)
+    assert image_diff.compare(card, cpu).verdict in chip_smoke.PASSING
+    ref = chip_smoke.REFERENCE_MISSES.get(name)
+    if ref is None:
+        assert res.verdict in chip_smoke.PASSING, str(res)
+    else:
+        assert res.rmse <= ref[0] * 1.1 + 0.5 and res.ssim >= ref[1] - 0.02

@@ -2,9 +2,10 @@
 interpreter, import every rtvb_tpu_torch module, build a 32×32
 Engine(device="cpu") with the shipped settings and render one frame at
 native resolution, one at the 1/2 rung (EASU) and one with a walking
-character (the frames catch lazy imports, such as the model loader
-reached only while building the soup or the character), then check
-sys.modules.  A scan of the sources catches import lines on
+character, and run the offline app for 2 frames at 32×32 on the CPU (the
+frames catch lazy imports, such as the model loader reached only while
+building the soup or the character, or the PNG writer's native binding),
+then check sys.modules.  A scan of the sources catches import lines on
 paths the frame does not reach."""
 import os
 import pkgutil
@@ -40,6 +41,17 @@ eng.add_entity(ch.entity)
 ch.update(eng.host_world, 1.0 / 30.0, (1.0, 0.0))
 out = eng.render_realtime()                 # the walking character's frame
 assert eng.entity_buffers().tri_packed.shape == (128, 9)
+import os, tempfile
+from rtvb_tpu_torch.apps import offline      # the offline app's whole path
+with tempfile.TemporaryDirectory() as td:
+    rc = offline.main(["--width", "32", "--height", "32", "--frames", "2",
+                       "--device", "cpu", "--out-dir", td])
+    assert rc == 0 and sorted(os.listdir(td)) == ["frame_0001.png",
+                                                  "frame_0002.png"]
+for mod in ("apps.interactive", "apps.offline", "core.controllers",
+            "ui.font", "ui.raster", "ui.overlay", "world.persistence",
+            "utils.perf", "utils.image", "utils.image_diff", "utils.native"):
+    assert "rtvb_tpu_torch." + mod in sys.modules, mod
 leaked = sorted(m for m in sys.modules
                 if m in ("jax", "rtvb_tpu") or m.startswith(("jax.",
                                                              "rtvb_tpu.")))
