@@ -103,7 +103,23 @@
    frame, capture ms, peak memory with and without graphs, profiles of
    replays and of eager frames, and live and reserved memory over 20
    edit-and-frame cycles (flat, no capture);
-12. the interactive app (apps/interactive.py) at 1920×1080 with the app's
+12. the frame as 4 extended row bands (rtvb_tpu_torch/parallel/) at
+   1920×1080, the shipped settings with full-res GI (rows 270, halo 37,
+   ext 344, from rows 0, 233, 503, 736), run band after band on the one
+   card by LocalBands, its launch counts reset just before its frames and
+   read just after (K1-K6; K4 12 times a frame): three frames, two with
+   the camera still and one moved, against the unsharded frame of the
+   same engine — frame 1 equal (u8, own rows of the slow history and of
+   every reservoir plane, to the bit), frame 2 with every reservoir plane
+   to the bit and the u8 frame at the whole-frame bar, frame 3 reported
+   (each band scales its v-motion by its own rows, as the JAX package's
+   do) beside the same frames with the v-motion rescaled to the image's
+   rows (a what-if, which must come closer); K4 at the four band offsets,
+   K5 and K6 at 344 rows on a banded frame's own calls, bit for bit;
+   each band step's ms, the banded and the unsharded frame in turns, peak
+   memory; a real NCCL group of one rank through sharded_frame_fn's
+   all-gather, three frames equal to the unsharded ones bit for bit;
+13. the interactive app (apps/interactive.py) at 1920×1080 with the app's
    settings (shipped + block_highlight, dynamic resolution on), driven
    through its own loop and its own StdinInputSource by scripted keys: the
    MainMenu, NEW GAME, CREATE; the dev panel and one live setting
@@ -118,7 +134,7 @@
    loads back bit for bit and that the first replay after the edit equals
    an eager frame of a copy, bit for bit; it prints the tracker's summary
    row, the completed-frame ms, the scales and the captures;
-13. the offline app (apps/offline.py) against data/canonical's goldens at
+14. the offline app (apps/offline.py) against data/canonical's goldens at
    their own sizes and frame counts (the 128² canonical, the 512² one,
    the three scripted edit sequences at 96², the flythrough's frame 16):
    each verdict with RMSE, SSIM and diff share, held to "close" where the
@@ -135,6 +151,7 @@ and nvcc's register / spill report to chiprun_out/nvcc_ptxas.log.
 from __future__ import annotations
 
 import bisect
+import contextlib
 import copy
 import json
 import os
@@ -331,16 +348,19 @@ def exact(fields):
     return cmp
 
 
-def capture_frame_calls(eng):
-    """The K1, K6 and K2 calls of one eager frame of `eng` (it advances
-    the engine's state like any frame), their tensors copied: ([(o, d, t_cap,
-    any_hit)], [(illum, var, depth, normal, step, phis)], [(o, d, tri,
-    t_cap)]) in call order."""
+def capture_frame_calls(eng, run=None):
+    """The K1, K6, K2 and K5 calls of one frame (run(), by default one
+    eager frame of `eng`, which advances the engine's state like any
+    frame), their tensors copied: ([(o, d, t_cap, any_hit)], [(illum, var,
+    depth, normal, step, phis)], [(o, d, tri, t_cap)], [(bilinear, hist,
+    sy, sx)]) in call order."""
     from rtvb_tpu_torch.ops import triangles
-    from rtvb_tpu_torch.render import denoiser, pathtracer
-    traces, atrous, tris = [], [], []
+    from rtvb_tpu_torch.ops.denoise import passes
+    from rtvb_tpu_torch.render import denoiser, pathtracer, restir
+    traces, atrous, tris, warps = [], [], [], []
     orig_trace, orig_atrous = pathtracer.trace, denoiser.atrous_pass
     orig_tri = triangles.intersect_packed
+    orig_nearest, orig_bilinear = restir.warp_nearest, passes.warp_bilinear
 
     def rec_trace(o, d, tables, tp, t_cap=None, any_hit=False):
         traces.append((tuple(c.clone() for c in o),
@@ -358,14 +378,26 @@ def capture_frame_calls(eng):
                      tuple(c.clone() for c in d), tri.clone(),
                      None if t_cap is None else t_cap.clone()))
         return orig_tri(o, d, tri, t_cap)
+
+    def rec_nearest(h, sy, sx):
+        warps.append((False, h.clone(), sy.clone(), sx.clone()))
+        return orig_nearest(h, sy, sx)
+
+    def rec_bilinear(h, sy, sx, pair_channels=0):
+        check(pair_channels == 6, f"bilinear warp with {pair_channels}")
+        warps.append((True, h.clone(), sy.clone(), sx.clone()))
+        return orig_bilinear(h, sy, sx, pair_channels)
     pathtracer.trace, denoiser.atrous_pass = rec_trace, rec_atrous
     triangles.intersect_packed = rec_tri
+    restir.warp_nearest, passes.warp_bilinear = rec_nearest, rec_bilinear
     try:
-        eng._eager_frame()
+        (run or eng._eager_frame)()
     finally:
         pathtracer.trace, denoiser.atrous_pass = orig_trace, orig_atrous
         triangles.intersect_packed = orig_tri
-    return traces, atrous, tris
+        restir.warp_nearest, passes.warp_bilinear = orig_nearest, \
+            orig_bilinear
+    return traces, atrous, tris, warps
 
 
 def trace_inputs(eng, traces) -> dict:
@@ -878,9 +910,10 @@ def synthetic_lights(k: int, n_lit: int, seed: int, device):
     return lighting.light_table_from_numpy(arrays, device)
 
 
-def capture_shade_calls(eng):
-    """The fused_shade calls of one eager frame of `eng` (it advances the
-    engine's state like any frame): [(args, kwargs)] per bounce."""
+def capture_shade_calls(eng, run=None):
+    """The fused_shade calls of one frame (run(), by default one eager
+    frame of `eng`, which advances the engine's state like any frame):
+    [(args, kwargs)] per call."""
     from rtvb_tpu_torch.render import ris_kernel as RK
     calls = []
     orig = RK.fused_shade
@@ -890,7 +923,7 @@ def capture_shade_calls(eng):
         return orig(*a, **kw)
     RK.fused_shade = record
     try:
-        eng._eager_frame()
+        (run or eng._eager_frame)()
     finally:
         RK.fused_shade = orig
     return calls
@@ -1541,7 +1574,7 @@ def gameplay(shipped, K, rep: Report) -> dict:
                  lambda a=args, k=kw: RK.fused_shade_cuda(*a, **k),
                  lambda a=args, k=kw: RK.fused_shade_plain(*a, **k),
                  bit_exact_shade, shade_work(args, kw))
-    _, _, tris = capture_frame_calls(eng)
+    _, _, tris, _ = capture_frame_calls(eng)
     to, td, tt, tc = tris[0]
     rep.case("tri", f"lit bounce 0, {tt.shape[0]}-row soup",
              lambda: triangles.intersect_packed_cuda(to, td, tt, tc),
@@ -1565,7 +1598,7 @@ def gameplay(shipped, K, rep: Report) -> dict:
               for f in ("colmask", "df", "maxh")),
           "the bricks changed the march's tables")
     K.reset_launch_counts()
-    traces, _, _ = capture_frame_calls(eng)
+    traces, _, _, _ = capture_frame_calls(eng)
     out = eng.render_realtime_device()
     grown_counts = K.launch_counts()
     check_frame(out, shape, "frame with the grown exception list")
@@ -1792,7 +1825,7 @@ def entity_kernel_cases(eng, rep: "Report", label: str) -> dict:
     timed → {"tri_ms": the five launches' ms, "texture": counts}."""
     from rtvb_tpu_torch.assets import image_textures as it
     from rtvb_tpu_torch.ops import triangles
-    _, _, tris = capture_frame_calls(eng)
+    _, _, tris, _ = capture_frame_calls(eng)
     rows = tris[0][2].shape[0]
     tri_ms = []
     for i, (o, d, tri, cap) in enumerate(tris):
@@ -2246,6 +2279,469 @@ def graph_phase(shipped, K) -> dict:
                                      for k, g in captures.items()},
                profile_replay=prof_replay, profile_eager=prof_eager)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The frame as extended row bands (rtvb_tpu_torch/parallel/)
+# ---------------------------------------------------------------------------
+
+BANDS = 4        # 1080 / 4 with the shipped denoiser: rows 270, halo 37,
+#                  ext 344, the bands from rows 0, 233, 503 and 736
+BAND_TURNS = 4   # pairs of the banded and the unsharded frame in turns
+# The reference's own frames 2-3 deviate from the unsharded frame: each band
+# reprojects its history in its own rows (the caveat of
+# tests/test_torch_parallel.py).  Their bars, from the readings on the card
+# (frame 2: u8 mean |Δ| 0.0276, 99.47% of pixels within 1/255, 99.81% of
+# own-row slow values within JAX's tolerance; frame 3: 1.421, 87.70%
+# within 3/255), with room for a change of rounding and none for a broken
+# band: {frame index: (max u8 mean |Δ|, {share: least value})}.
+BAND_BARS = {1: (0.1, {"u8_within_1": 0.99, "slow_within_jax_tol": 0.995}),
+             2: (2.0, {"u8_within_3": 0.85})}
+
+
+def bands_settings(width: int, height: int):
+    """The shipped settings with full-res GI, which the bands render (their
+    offsets can be odd, so half-res GI's 2x2 quads could not align)."""
+    from rtvb_tpu_torch.core.config import Settings
+    return Settings().replace(rendering={
+        "render_width": width, "render_height": height,
+        "half_res_gi": False})
+
+
+def band_frames(eng):
+    """The bands' three frames, (camera, history camera, frame index): two
+    with the camera still, then one with it moved as
+    tests/test_parallel.py moves it."""
+    from rtvb_tpu_torch.core.camera import Camera, make_camera
+    cam = Camera(*(t.clone() for t in eng.camera))
+    moved = make_camera(
+        pos=(float(cam.pos_x) + 0.05, float(cam.pos_y), float(cam.pos_z)),
+        yaw=float(cam.yaw) + 0.01, pitch=float(cam.pitch),
+        fov_y_degrees=eng.settings.camera_movement.fov_y_degrees,
+        aspect=eng.out_width / eng.out_height, device=eng.device)
+    return [(cam, cam, 0), (cam, cam, 1), (moved, cam, 2)]
+
+
+def band_call(fn, eng, cam, hist, frame, states):
+    """fn (Engine run's signature) on eng's tables and the given states
+    (restir, dstate, post) → (u8, restir, dstate, post)."""
+    import torch
+    dev = eng.device
+    return fn(eng._tables, eng.materials, eng.lights, eng.sky_state, cam,
+              hist, torch.tensor(frame, dtype=torch.int64, device=dev),
+              states[0], eng._identity_remap(), states[1], states[2],
+              torch.tensor(1.0 / 60.0, dtype=torch.float32, device=dev),
+              eng.entity_buffers(), eng.texture_atlas)
+
+
+def bits32(t):
+    import torch
+    return t.contiguous().view(torch.int32) \
+        if t.dtype == torch.float32 else t
+
+
+def bands_vs_unsharded(k, mono, bands, eng, n, layout, label) -> dict:
+    """Frame k of a banded run against the unsharded one: the u8 frames,
+    the own rows of the denoiser's slow history (bits, and the share of
+    pixels within JAX's rtol 1e-4 / atol 1e-5) and of every reservoir
+    plane (bits; M's largest difference)."""
+    import torch
+    from rtvb_tpu_torch.ops.pack import unpack2
+    from rtvb_tpu_torch.parallel.frame import own_rows
+    H = eng.height
+    (m_u8, m_r, m_d, _), (s_u8, s_r, s_d, _) = mono, bands
+    own_r = own_rows(s_r.data, H, n, layout, 1)
+    slow = own_rows(s_d.slow, H, n, layout, 0)
+    d = (s_u8.int() - m_u8.int()).abs().max(dim=-1).values
+    sM, _ = unpack2(own_r[4])
+    mM, _ = unpack2(m_r.data[4])
+    in_tol = ((slow - m_d.slow).abs()
+              <= 1e-5 + 1e-4 * m_d.slow.abs()).all(dim=-1)
+    out = dict(
+        u8_max_diff=int(d.max()), u8_pixels_differing=int((d > 0).sum()),
+        u8_mean_abs_diff=float((s_u8.int() - m_u8.int()).abs().float()
+                               .mean()),
+        u8_within_1=float((d <= 1).float().mean()),
+        u8_within_3=float((d <= 3).float().mean()),
+        slow_values_differing=int((bits32(slow) != bits32(m_d.slow)).sum()),
+        slow_within_jax_tol=float(in_tol.float().mean()),
+        restir_values_differing=int((bits32(own_r)
+                                     != bits32(m_r.data)).sum()),
+        M_max_diff=float((sM - mM).abs().max()),
+        M_pixels_differing=int((sM != mM).sum()))
+    log(f"  {label} frame {k + 1}: {out}")
+    check_frame(s_u8, m_u8.shape, f"{label} frame {k + 1}")
+    return out
+
+
+def hold_exact(out: dict, label: str):
+    """The band frame equals the unsharded one: u8, own-row slow history
+    and reservoirs to the bit."""
+    check(out["u8_pixels_differing"] == 0, f"{label}: u8 differs")
+    check(out["slow_values_differing"] == 0, f"{label}: slow differs")
+    check(out["restir_values_differing"] == 0,
+          f"{label}: reservoirs differ")
+
+
+def hold_jax_tolerance(out: dict, label: str):
+    """JAX's bar for its banded frames (tests/test_parallel.py: every
+    own-row slow value within rtol 1e-4 / atol 1e-5, M within 1e-3), and
+    every u8 value within 1/255."""
+    check(out["slow_within_jax_tol"] == 1.0 and out["M_max_diff"] <= 1e-3
+          and out["u8_max_diff"] <= 1, f"{label}: off JAX's tolerance")
+
+
+def hold_bars(out: dict, bars, label: str):
+    max_mean, least = bars
+    check(out["u8_mean_abs_diff"] <= max_mean
+          and all(out[k] >= v for k, v in least.items()),
+          f"{label}: off its bars {bars}")
+
+
+@contextlib.contextmanager
+def image_row_reprojection(bands):
+    """A what-if, not the reference: ReSTIR's taps and the denoiser's
+    history reprojection on a band, with their source rows computed as the
+    unsharded frame computes them (in the image's rows, then less the
+    band's first row) in place of the band's own rows.  It corrects both
+    the v-motion's scale (band rows for image rows) and the rounding of a
+    band-local row coordinate."""
+    import torch
+    from rtvb_tpu_torch.ops.denoise import passes
+    from rtvb_tpu_torch.render import restir
+    height = bands.height
+    orig = (restir.warp_taps, passes.temporal_accumulate,
+            restir.warp_nearest, passes.warp_bilinear)
+    at = {"y0": 0, "mv": None}
+
+    def keep(mu, mv):          # the v-motion as both callers mask it
+        ok = (torch.abs(mu) < 1.5) & (torch.abs(mv) < 1.5)
+        at["mv"] = torch.where(ok, mv, 0.0)
+
+    def image_sy(sy):
+        y0 = at["y0"]
+        rows = torch.arange(height, device=sy.device)[y0:y0 + sy.shape[0]]
+        v = 1.0 - (rows + 0.5)[:, None] / height
+        return (((1.0 - (v + at["mv"])) * height - 0.5) - y0).contiguous()
+
+    def taps(prev, mu, mv, *rest):
+        keep(mu, mv)
+        return orig[0](prev, mu, mv, *rest)
+
+    def accumulate(illum, moments, mu, mv, *rest):
+        keep(mu, mv)
+        return orig[1](illum, moments, mu, mv, *rest)
+
+    def nearest(h, sy, sx):
+        return orig[2](h, image_sy(sy), sx)
+
+    def bilinear(h, sy, sx, pair_channels=0):
+        return orig[3](h, image_sy(sy), sx, pair_channels)
+
+    def band(rank, *a):
+        at["y0"] = bands.offset(rank)
+        return type(bands).band(bands, rank, *a)
+    (restir.warp_taps, passes.temporal_accumulate, restir.warp_nearest,
+     passes.warp_bilinear) = taps, accumulate, nearest, bilinear
+    bands.band = band
+    try:
+        yield
+    finally:
+        (restir.warp_taps, passes.temporal_accumulate, restir.warp_nearest,
+         passes.warp_bilinear) = orig
+        del bands.band
+
+
+def band_kernel_cases(bands, shade, warps, atrous, rep: Report) -> dict:
+    """K4 (every call: three bounces at each band's y0), K5 (nearest and
+    bilinear) and K6 (four steps) on a banded frame's own calls, as
+    capture_shade_calls and capture_frame_calls record them (band after
+    band), each bit-exact against its plain version; the band at row 233
+    (and K4 bounce 0 at every offset) also timed into the report."""
+    import torch
+    from rtvb_tpu_torch.ops import warp_kernel
+    from rtvb_tpu_torch.ops.denoise import atrous_kernel, passes
+    from rtvb_tpu_torch.render import ris_kernel as RK
+    n = bands.n
+    check(len(shade) == n * 3, f"{len(shade)} K4 calls in a banded frame")
+    y0s = sorted({a[2] for a, _ in shade})
+    check(y0s == [bands.offset(r) for r in range(n)],
+          f"K4's y0 over the bands: {y0s}")
+    out = {"shade_y0": y0s}
+    for i, (a, kw) in enumerate(shade):
+        h, w = a[8][0].shape
+        check(h == bands.ext, f"K4 on {h} rows, not the band's {bands.ext}")
+        label = f"band y0 {a[2]}, bounce {i % 3}, {w}x{h}"
+        if i % 3 == 0:
+            rep.case("shade", label,
+                     lambda a=a, k=kw: RK.fused_shade_cuda(*a, **k),
+                     lambda a=a, k=kw: RK.fused_shade_plain(*a, **k),
+                     bit_exact_shade, shade_work(a, kw), n=5)
+        else:
+            bit_exact_shade(RK.fused_shade_cuda(*a, **kw),
+                            RK.fused_shade_plain(*a, **kw))
+    log(f"    K4 bit-exact on all {len(shade)} band calls, y0 {y0s}")
+    timed = 1                  # the band from row 233
+
+    def warp_bits(a, b):
+        check(bool((a[1] == b[1]).all()), "warp valid mask differs")
+        check(torch.equal(bits32(a[0]), bits32(b[0])), "warp words differ")
+        return 0.0, 0.0
+    check(len(warps) == 2 * n, f"{len(warps)} K5 calls in a banded frame")
+    for i, (bil, hist, sy, sx) in enumerate(warps):
+        h, w = sy.shape
+        check(h == bands.ext, f"K5 on {h} rows")
+        kern = (lambda a=(hist, sy, sx, bil): warp_kernel._warp_cuda(
+            *a[:3], a[3], 6 if a[3] else 0))
+        plain = (lambda a=(hist, sy, sx): warp_kernel.warp_bilinear_ref(
+            *a, 6)) if bil else (lambda a=(hist, sy, sx):
+                                 warp_kernel.warp_nearest_ref(*a))
+        if i // 2 == timed:
+            work = (h * w * (8 + 7 * 4 + 13 * 4 + 1), 8 * 13 * h * w) \
+                if bil else (h * w * (8 + 8 * 4 + 8 * 4 + 1), 4 * h * w)
+            rep.case("warp", f"band y0 {bands.offset(timed)}, "
+                     f"{'bilinear' if bil else 'nearest'}, {w}x{h}", kern,
+                     plain, warp_bits, work)
+        else:
+            warp_bits(kern(), plain())
+    log(f"    K5 bit-exact on all {len(warps)} band calls")
+
+    def atrous_bits(a, b):
+        for x, y in zip(a, b):
+            check(torch.equal(bits32(x), bits32(y)), "atrous differs")
+        return 0.0, 0.0
+    steps = len(atrous) // n
+    check(steps * n == len(atrous) and steps > 0,
+          f"{len(atrous)} K6 calls over {n} bands")
+    for i, args in enumerate(atrous):
+        h, w = args[2].shape
+        check(h == bands.ext, f"K6 on {h} rows")
+        kern = (lambda a=args: atrous_kernel._atrous_cuda(*a[:5], *a[5]))
+        plain = (lambda a=args: passes.atrous_pass_plain(*a[:5], *a[5]))
+        if i // steps == timed:
+            rep.case("atrous", f"band y0 {bands.offset(timed)}, step "
+                     f"{args[4]}, {w}x{h}", kern, plain, atrous_bits,
+                     (h * w * (32 + 16), ATROUS_PIXEL_OPS * h * w))
+        else:
+            atrous_bits(kern(), plain())
+    log(f"    K6 bit-exact on all {len(atrous)} band calls")
+    out.update(n_calls=dict(shade=len(shade), warp=len(warps),
+                            atrous=len(atrous)))
+    return out
+
+
+def world_of_one(eng, frames, mono_outs) -> dict:
+    """A real NCCL process group of world size 1 (a file store in a temp
+    directory) running sharded_frame_fn through its all-gather: each frame
+    equal to the unsharded one bit for bit, states included."""
+    import torch
+    import torch.distributed as dist
+    from rtvb_tpu_torch.parallel.frame import (initial_sharded_state,
+                                               sharded_frame_fn)
+    from rtvb_tpu_torch.parallel.mesh import init_group
+    from rtvb_tpu_torch.render.postprocess import initial_post_state
+    check(dist.is_available() and dist.is_nccl_available(),
+          "torch.distributed has no nccl")
+    with tempfile.TemporaryDirectory() as td:
+        group = init_group("nccl", 1, 0, os.path.join(td, "store"))
+        try:
+            step, layout = sharded_frame_fn(eng, group)
+            check(layout == (eng.height, eng.height, 0),
+                  f"world size 1 layout {layout}")
+            states = initial_sharded_state(eng, 1, group) + (
+                initial_post_state(eng.device),)
+            for k, ((cam, hist, fi), mono) in enumerate(zip(frames,
+                                                            mono_outs)):
+                out = band_call(step, eng, cam, hist, fi, states)
+                states = out[1:]
+                frames_equal(out[0], mono[0], f"nccl frame {k + 1}")
+                for name, x, y in ([("restir", out[1].data, mono[1].data)]
+                                   + list(zip(mono[2]._fields, out[2],
+                                              mono[2]))):
+                    check(torch.equal(bits32(x), bits32(y)),
+                          f"nccl frame {k + 1}: {name} differs")
+            sync()
+            check(dist.get_backend(group) == "nccl",
+                  f"the group's backend {dist.get_backend(group)}")
+        finally:
+            dist.destroy_process_group()
+    log(f"  a nccl group of one rank: {len(frames)} frames equal to the "
+        f"unsharded ones bit for bit")
+    return dict(backend="nccl", frames=len(frames))
+
+
+def dryrun_on_card() -> dict:
+    """The port's dry run entry, dryrun_multichip(1, "cuda"): one NCCL
+    rank in a process of its own renders its 64×64 frames; its frame and
+    states equal LocalBands' on this card to the bit."""
+    import torch
+    from rtvb_tpu_torch.parallel.dryrun import (dryrun_multichip,
+                                                dryrun_settings, run_frames)
+    from rtvb_tpu_torch.parallel.frame import (initial_sharded_state,
+                                               sharded_frame_fn)
+    from rtvb_tpu_torch.render.renderer import Engine
+    t0 = time.perf_counter()
+    got = dryrun_multichip(1, "cuda", timeout_s=180.0)
+    ms = (time.perf_counter() - t0) * 1e3
+    eng = Engine(settings=dryrun_settings(), device="cuda")
+    step, layout = sharded_frame_fn(eng, n_devices=1)
+    restir, dstate = initial_sharded_state(eng, 1)
+    u8, restir, dstate = run_frames(eng, step, restir, dstate)
+    check(got.layout == layout, f"dry run layout {got.layout}")
+    check(torch.equal(got.u8, u8.cpu()), "dry run u8 differs")
+    check(torch.equal(bits32(got.restir), bits32(restir.data.cpu())),
+          "dry run reservoirs differ")
+    for a, b in zip(got.dstate, dstate):
+        check(torch.equal(bits32(a), bits32(b.cpu())),
+              "dry run denoiser state differs")
+    log(f"  dryrun_multichip(1, 'cuda'): {tuple(got.u8.shape)} u8 and its "
+        f"states equal LocalBands' bit for bit, {ms:.1f} ms with the "
+        f"rank's start")
+    return dict(ms=ms, layout=got.layout)
+
+
+def bands_phase(K, rep: Report) -> dict:
+    """The frame as 4 extended row bands at 1920×1080 (the shipped
+    settings with full-res GI), emulated on the one card with LocalBands:
+    three frames against the unsharded frame of the same engine (and the
+    same frames with the reprojection in image rows, a what-if), the band
+    path's launch counts, K4 / K5 / K6 on the bands' own calls, a real
+    NCCL group of world size 1, the dry run entry on the card, the band
+    steps' ms, the banded and unsharded frames in turns, peak memory."""
+    import torch
+    from rtvb_tpu_torch.parallel.frame import (initial_sharded_state,
+                                               sharded_frame_fn)
+    from rtvb_tpu_torch.render import restir as restir_mod
+    from rtvb_tpu_torch.render.denoiser import initial_denoiser_state
+    from rtvb_tpu_torch.render.postprocess import initial_post_state
+    from rtvb_tpu_torch.render.renderer import Engine
+    fw, fh = FRAME
+    eng = Engine(settings=bands_settings(fw, fh), device="cuda")
+    dev = eng.device
+    mono = eng._build_run()
+    step, layout = sharded_frame_fn(eng, n_devices=BANDS)
+    bands = step.bands
+    y0s = [bands.offset(r) for r in range(BANDS)]
+    log(f"  {BANDS} bands: rows {layout[0]}, ext {layout[1]}, halo "
+        f"{layout[2]}, from rows {y0s}")
+    frames = band_frames(eng)
+    m_states = (restir_mod.initial_state(fh, fw, device=dev),
+                initial_denoiser_state(fh, fw, device=dev),
+                initial_post_state(dev))
+    mono_outs = []
+    for cam, hist, fi in frames:
+        o = band_call(mono, eng, cam, hist, fi, m_states)
+        m_states = o[1:]
+        mono_outs.append(o)
+    sync()
+
+    # the band path: its counts reset right before and read right after
+    s_states = initial_sharded_state(eng, BANDS) + (initial_post_state(dev),)
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    band_outs = []
+    for cam, hist, fi in frames:
+        o = band_call(step, eng, cam, hist, fi, s_states)
+        s_states = o[1:]
+        band_outs.append(o)
+    sync()
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  launch counts over {len(frames)} banded frames: {counts}")
+    for name in KERNELS:
+        if name in RUNG_ONLY:
+            check(counts.get(name, 0) == 0, f"the bands launched {name}")
+        else:
+            check(counts.get(name, 0) > 0, f"the bands never launched {name}")
+    n_shade = BANDS * len(frames) * eng.settings.rendering.total_bounce_limit
+    check(counts["shade"] == n_shade,
+          f"K4 launched {counts['shade']} times, not {n_shade}")
+    compare = [bands_vs_unsharded(k, m, s, eng, BANDS, layout, "4 bands")
+               for k, (m, s) in enumerate(zip(mono_outs, band_outs))]
+    hold_exact(compare[0], "4 bands frame 1")
+    check(compare[1]["restir_values_differing"] == 0,
+          "4 bands frame 2: reservoirs differ")
+    for k, bars in BAND_BARS.items():
+        hold_bars(compare[k], bars, f"4 bands frame {k + 1}")
+    # what frames 2-3 owe to the reprojection in the band's rows: the same
+    # frames with it in the image's rows, frame 2 to the bit (as read on
+    # the card) and frame 3 within JAX's tolerances and 1/255
+    w_states = initial_sharded_state(eng, BANDS) + (initial_post_state(dev),)
+    what_if = []
+    with image_row_reprojection(bands):
+        for k, (cam, hist, fi) in enumerate(frames):
+            w_out = band_call(step, eng, cam, hist, fi, w_states)
+            w_states = w_out[1:]
+            what_if.append(bands_vs_unsharded(
+                k, mono_outs[k], w_out, eng, BANDS, layout,
+                "4 bands, reprojection in image rows (what-if)"))
+    hold_exact(what_if[0], "what-if frame 1")
+    hold_exact(what_if[1], "what-if frame 2")
+    hold_jax_tolerance(what_if[2], "what-if frame 3")
+    del w_states, w_out
+
+    # K4 at the four offsets, K5 and K6 at the band's height, on the calls
+    # of a banded frame (the second frame's inputs: live reservoirs)
+    s1 = (restir_mod.ReSTIRState(data=band_outs[0][1].data.clone()),
+          type(band_outs[0][2])(*(t.clone() for t in band_outs[0][2])),
+          initial_post_state(dev))
+
+    def second_frame():
+        band_call(step, eng, *frames[1], s1)
+    shade = capture_shade_calls(eng, second_frame)
+    _, atrous, _, warps = capture_frame_calls(eng, second_frame)
+    kernels = band_kernel_cases(bands, shade, warps, atrous, rep)
+    del shade, atrous, warps, s1
+
+    # each band step's ms (host clock around work that ends in a sync),
+    # then the banded frame against the unsharded one in turns
+    card = card_line()
+    cam, hist, fi = frames[1]
+    idx = torch.tensor(fi, dtype=torch.int64, device=dev)
+    remap, ent = eng._identity_remap(), eng.entity_buffers()
+    st = initial_sharded_state(eng, BANDS)
+    step_ms = {}
+    for r in range(BANDS):
+        sl = slice(r * bands.ext, (r + 1) * bands.ext)
+        pr = restir_mod.ReSTIRState(data=st[0].data[:, sl].contiguous())
+        ds = type(st[1])(*(t[sl] for t in st[1][:-1]), st[1].bootstrapped)
+        ts = []
+        for _ in range(4):
+            sync()
+            t0 = time.perf_counter()
+            bands.band(r, eng._tables, eng.materials, eng.lights,
+                       eng.sky_state, cam, hist, idx, pr, remap, ds, ent,
+                       eng.texture_atlas)
+            sync()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        step_ms[y0s[r]] = statistics.median(ts[1:])
+    log(f"  band step ms (median of 3 after 1) by first row, on {card}: "
+        f"{step_ms}")
+    fns = {"bands": lambda: band_call(step, eng, cam, hist, fi, s_states),
+           "unsharded": lambda: band_call(mono, eng, cam, hist, fi,
+                                          m_states)}
+    turns = {k: [] for k in fns}
+    labels = list(fns)
+    for i in range(2 * BAND_TURNS):
+        for label in (labels if i % 2 == 0 else labels[::-1]):
+            sync()
+            t0 = time.perf_counter()
+            fns[label]()
+            sync()
+            turns[label].append((time.perf_counter() - t0) * 1e3)
+    for label, ts in turns.items():
+        log(f"  frame {fw}x{fh} full-res GI in turns, {label}, on {card}: "
+            f"median {statistics.median(ts):.3f} ms "
+            f"{[round(t, 3) for t in ts]}")
+    log(f"  peak memory allocated over the banded frames "
+        f"{peak / 2 ** 20:.1f} MiB")
+
+    group = world_of_one(eng, frames, mono_outs)
+    dry = dryrun_on_card()
+    return dict(card=card, layout=layout, y0=y0s, launches=counts,
+                frames=compare, image_row_reprojection=what_if,
+                kernels=kernels, step_ms=step_ms, turns_ms=turns,
+                peak_bytes=peak, world_of_one=group, dryrun=dry)
 
 
 # ---------------------------------------------------------------------------
@@ -2963,7 +3459,7 @@ def main() -> int:
         f"SM's limits): {occupancy}")
     log("kernels against their plain versions (CUDA events, median of 10):")
     rep = Report()
-    traces, atrous, tris = capture_frame_calls(eng)
+    traces, atrous, tris, _ = capture_frame_calls(eng)
     substeps = kernel_cases(eng, rep, traces, atrous, tris)
     del traces, atrous, tris
     k5_rounds = warp_vs_grid_sample(eng)
@@ -3108,6 +3604,12 @@ def main() -> int:
     # bit for bit, then their costs in turns
     graph = graph_phase(shipped, K)
 
+    phase("bands")
+    # the frame as 4 extended row bands on the one card, a real NCCL group
+    # of one and the dry run entry on the card: the band path's counts
+    # reset right before its frames and read right after (inside)
+    bands = bands_phase(K, rep)
+
     phase("interactive")
     # the interactive app's loop at 1920×1080: its own launch counts are
     # reset right before the session and read right after (inside)
@@ -3186,6 +3688,7 @@ def main() -> int:
                        rungs=rungs, rung_turns_ms=rung_turns,
                        profile_half_rung=prof_half, dynres_walk=walk,
                        gameplay=play, entities=entities, graph=graph,
+                       bands=bands,
                        interactive=session, goldens=goldens,
                        offline_launches=offline_counts,
                        accumulated_ms=accumulated, phase_s=phase_s,

@@ -208,7 +208,7 @@ def main() -> int:
         eng = Engine(settings=Settings().replace(rendering={
             "render_width": fw, "render_height": fh}), device="cuda")
         eng.render_realtime_device()
-        traces, atrous, tris = S.capture_frame_calls(eng)
+        traces, atrous, tris, _ = S.capture_frame_calls(eng)
         tables, tp = eng._tables, eng._tp
         # the module attribute each wrapper launches its kernel through
         handles = {"trace": (dda, "TRACE"), "tri": (triangles, "TRI"),

@@ -260,29 +260,35 @@ def render_frame(cfg, tables: TraceTables, tp: TraceParams, mats,
                  rs_cfg: RenderingSettings, prev_restir=None,
                  light_remap=None, entities: EntityBuffers | None = None,
                  atlas=None, half_res_gi: bool = False,
-                 block_highlight: bool = False):
+                 block_highlight: bool = False, y0: int = 0,
+                 rows: int | None = None):
     """One 1-spp path-traced frame → (GBuffers, new ReSTIRState | None).
     frame_idx is a 0-d int64 tensor on the frame's device (a host int is
     placed there): the RNG, K4 and the ReSTIR taps read it as a tensor,
     and no host value depends on a device value, so the frame can be
     captured in a CUDA graph.  block_highlight adds the picked block's
     edge mask (GBuffers.highlight) from the centre pixel's voxel-only
-    primary hit."""
+    primary hit.  y0 (a host int) and rows render the horizontal band of
+    rows y0 .. y0 + rows - 1 of the `height`-tall image: the RNG, the blue
+    noise, the camera rays, the motion vectors and K4 see the band's
+    absolute rows, and every output is (rows, width)."""
     use_restir = prev_restir is not None
-    H, W = height, width
+    y0 = int(y0)
+    H, W = (height if rows is None else rows), width
     dev = cam.pos_x.device
     half_gi = (half_res_gi and H % 2 == 0 and W % 2 == 0
                and rs_cfg.total_bounce_limit > 1)
     px = torch.arange(W, dtype=torch.int64, device=dev)[None, :].expand(H, W)
-    py = torch.arange(H, dtype=torch.int64, device=dev)[:, None].expand(H, W)
+    py = torch.arange(y0, y0 + H, dtype=torch.int64,
+                      device=dev)[:, None].expand(H, W)
     frame_u = rng.frame_tensor(frame_idx, dev)
 
-    bn_full = rng.bn_packed(H, W, 0, device=dev) if rs_cfg.blue_noise \
+    bn_full = rng.bn_packed(H, W, y0, device=dev) if rs_cfg.blue_noise \
         else None
     bn_cur = bn_full     # the live wave's planes (half-res after GI)
     rs = rng.RandState(px, py, frame_u, 0, bn=bn_full)
     ju, jv = rs.next2()
-    o, d = camera_rays(cam, W, height, ju, jv)
+    o, d = camera_rays(cam, W, height, ju, jv, y0=y0, rows=H)
     o, d = _c3(o), _c3(d)
 
     def trace_radiance(oo, dd):
@@ -488,7 +494,8 @@ def render_frame(cfg, tables: TraceTables, tp: TraceParams, mats,
             g_rough = torch.where(first_hit, mat.roughness, 1.0)
             g_emissive = hit_emis
 
-            u_cur, v_cur = pixel_uv(W, height, ju, jv, device=dev)
+            u_cur, v_cur = pixel_uv(W, height, ju, jv, y0=y0, rows=H,
+                                    device=dev)
             p_ref = p
             if test_ent:
                 w0 = 1.0 - th.u - th.v
@@ -528,7 +535,7 @@ def render_frame(cfg, tables: TraceTables, tp: TraceParams, mats,
                 m_cap=float(restir_mod.M_CAP), dis_thr=0.2,
                 blue_noise=bn_cur is not None)
             out = ris_kernel.fused_shade(
-                sh_cfg, frame_u, 0, sf_pack, lf_pack, li_pack, envf_pack,
+                sh_cfg, frame_u, y0, sf_pack, lf_pack, li_pack, envf_pack,
                 envi_pack, _c3(p_off), _c3(n), _c3(wo),
                 _c3((mat.albedo_r, mat.albedo_g, mat.albedo_b)),
                 mat.roughness.contiguous(), mat.metallic.contiguous(),
@@ -644,7 +651,7 @@ def render_frame(cfg, tables: TraceTables, tp: TraceParams, mats,
             prev_delta = _ds(prev_delta)
             prev_cos_pdf = _ds(prev_cos_pdf)
             bn_cur = None if bn_full is None \
-                else rng.bn_packed(H // 2, W // 2, 0, step=2, device=dev)
+                else rng.bn_packed(H // 2, W // 2, y0, step=2, device=dev)
             rs = rng.RandState(_ds(px), _ds(py), frame_u, 0, bn=bn_cur)
             L_gi = [torch.zeros_like(one_h) for _ in range(3)]
             Lcur = L_gi

@@ -51,7 +51,11 @@ growing edit captured once.  The apps (chip_smoke's interactive and
 offline phases): a scripted keyboard session at 320×180 through the
 interactive app's loop (captures as the rule predicts, frames not blank,
 the save loaded back, the replay after a live edit equal to an eager
-frame), and offline.main --test-canonical at 128²."""
+frame), and offline.main --test-canonical at 128².  The frame as 4
+extended row bands at 1080p (chip_smoke's bands phase): the first banded
+frame equal to the unsharded one (u8, own rows of the slow history and of
+every reservoir plane to the bit), and K4 at the bands from rows 0, 233
+and 736 (344 rows) on a banded frame's own calls, bit for bit."""
 import os
 
 import numpy as np
@@ -704,7 +708,7 @@ def test_engine_gameplay_edits_on_card(cuda):
     xyz = chip_smoke.surface_bricks(eng)
     eng.set_blocks(xyz, np.full(len(xyz), B.BRICK, np.uint8))
     assert eng._tables.exc_key.shape[0] == 1024
-    traces, _, _ = chip_smoke.capture_frame_calls(eng)
+    traces, _, _, _ = chip_smoke.capture_frame_calls(eng)
     for o, d, cap, any_hit in traces:
         a = dda.trace_cuda(o, d, eng._tables, eng._tp, cap, any_hit)
         b = dda.trace_plain(o, d, eng._tables, eng._tp, cap, any_hit)
@@ -932,3 +936,58 @@ def test_offline_test_canonical_128_on_card(cuda, tmp_path):
         assert res.verdict in chip_smoke.PASSING, str(res)
     else:
         assert res.rmse <= ref[0] * 1.1 + 0.5 and res.ssim >= ref[1] - 0.02
+
+
+# ---------------------------------------------------------------------------
+# the frame as 4 extended row bands at 1080p (chip_smoke's bands phase)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def band_frame_1(cuda):
+    """The first 4-band 1080p frame (LocalBands, full-res GI) and the
+    unsharded frame of the same engine, from fresh states."""
+    import chip_smoke as cs
+    from rtvb_tpu_torch.parallel.frame import (initial_sharded_state,
+                                               sharded_frame_fn)
+    from rtvb_tpu_torch.render import restir as restir_mod
+    from rtvb_tpu_torch.render.denoiser import initial_denoiser_state
+    from rtvb_tpu_torch.render.postprocess import initial_post_state
+    from rtvb_tpu_torch.render.renderer import Engine
+    eng = Engine(settings=cs.bands_settings(1920, 1080), device=cuda)
+    step, layout = sharded_frame_fn(eng, n_devices=4)
+    frames = cs.band_frames(eng)
+    mono = cs.band_call(eng._build_run(), eng, *frames[0], (
+        restir_mod.initial_state(1080, 1920, device=cuda),
+        initial_denoiser_state(1080, 1920, device=cuda),
+        initial_post_state(cuda)))
+    bands = cs.band_call(step, eng, *frames[0], initial_sharded_state(
+        eng, 4) + (initial_post_state(cuda),))
+    return cs, eng, step, layout, frames, mono, bands
+
+
+def test_bands_first_1080p_frame_equals_unsharded(band_frame_1):
+    cs, eng, _, layout, _, mono, bands = band_frame_1
+    assert layout == (270, 344, 37)
+    cs.hold_exact(cs.bands_vs_unsharded(0, mono, bands, eng, 4, layout,
+                                        "4 bands"), "4 bands frame 1")
+
+
+@pytest.fixture(scope="module")
+def band_shade_calls(band_frame_1):
+    """K4's calls in the second banded frame (live reservoirs)."""
+    cs, eng, step, _, frames, _, bands = band_frame_1
+    calls = cs.capture_shade_calls(
+        eng, lambda: cs.band_call(step, eng, *frames[1], bands[1:]))
+    return cs, calls
+
+
+@pytest.mark.parametrize("y0", [0, 233, 736])
+def test_shade_kernel_at_band_offsets(band_shade_calls, y0):
+    from rtvb_tpu_torch.render import ris_kernel as RK
+    cs, calls = band_shade_calls
+    mine = [(a, kw) for a, kw in calls if a[2] == y0]
+    assert len(mine) == 3           # bounces 0-2 of the band from row y0
+    for a, kw in mine:
+        assert a[8][0].shape == (344, 1920)
+        cs.bit_exact_shade(RK.fused_shade_cuda(*a, **kw),
+                           RK.fused_shade_plain(*a, **kw))
