@@ -103,7 +103,25 @@
    frame, capture ms, peak memory with and without graphs, profiles of
    replays and of eager frames, and live and reserved memory over 20
    edit-and-frame cycles (flat, no capture);
-12. the frame as 4 extended row bands (rtvb_tpu_torch/parallel/) at
+12. the profiling tools (rtvb_tpu_torch/tools/) at 1920×1080 with the
+   shipped settings: first, in a process of their own that has run no
+   profiler (`chip_smoke.py --timing-tools PATH`; replays timed after a
+   torch.profiler session drift by up to a tenth), profile_frame at
+   scale 1 and 2/3 (each stage's first call, eager, capture, replay),
+   ablate_pt at 2/3 with all nine variants timed as replays, its full
+   replay within 10% of profile_frame's path-trace replay, micro_pt and
+   micro_post, every replay time the mean over eight captures; then here
+   device_trace at scale 1 and at the 1/2 rung on one engine (three
+   eager frames under torch.profiler with the Python stacks, each device
+   kernel attributed through the profiler's correlation to its launching
+   op and dtypes, the innermost rtvb_tpu_torch function and the stage;
+   three replays in turns with them in the same profile), each hand
+   kernel in its kernel-name group with the launch counters' count for
+   the same frames (K1-K6 at scale 1, K7 too at 1/2), the port functions
+   holding ≥ 95% of the eager device time and the eager busy ms within
+   10% of the replays'; the top 15 port functions at each scale printed;
+   all of it under "tools" in chip_smoke.json;
+13. the frame as 4 extended row bands (rtvb_tpu_torch/parallel/) at
    1920×1080, the shipped settings with full-res GI (rows 270, halo 37,
    ext 344, from rows 0, 233, 503, 736), run band after band on the one
    card by LocalBands, its launch counts reset just before its frames and
@@ -116,10 +134,12 @@
    do) beside the same frames with the v-motion rescaled to the image's
    rows (a what-if, which must come closer); K4 at the four band offsets,
    K5 and K6 at 344 rows on a banded frame's own calls, bit for bit;
-   each band step's ms, the banded and the unsharded frame in turns, peak
-   memory; a real NCCL group of one rank through sharded_frame_fn's
-   all-gather, three frames equal to the unsharded ones bit for bit;
-13. the interactive app (apps/interactive.py) at 1920×1080 with the app's
+   K5 nearest at 1920×344 against grid_sample in 7 rounds of 20 calls,
+   the order reversed every round; each band step's ms, the banded and
+   the unsharded frame in turns, peak memory; a real NCCL group of one rank
+   through sharded_frame_fn's all-gather, three frames equal to the
+   unsharded ones bit for bit;
+14. the interactive app (apps/interactive.py) at 1920×1080 with the app's
    settings (shipped + block_highlight, dynamic resolution on), driven
    through its own loop and its own StdinInputSource by scripted keys: the
    MainMenu, NEW GAME, CREATE; the dev panel and one live setting
@@ -134,7 +154,7 @@
    loads back bit for bit and that the first replay after the edit equals
    an eager frame of a copy, bit for bit; it prints the tracker's summary
    row, the completed-frame ms, the scales and the captures;
-14. the offline app (apps/offline.py) against data/canonical's goldens at
+15. the offline app (apps/offline.py) against data/canonical's goldens at
    their own sizes and frame counts (the 128² canonical, the 512² one,
    the three scripted edit sequences at 96², the flythrough's frame 16):
    each verdict with RMSE, SSIM and diff share, held to "close" where the
@@ -150,19 +170,21 @@ and nvcc's register / spill report to chiprun_out/nvcc_ptxas.log.
 """
 from __future__ import annotations
 
-import bisect
 import contextlib
 import copy
 import json
 import os
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
 import traceback
 
 import numpy as np
+
+from rtvb_tpu_torch.tools import device_trace as DT
+from rtvb_tpu_torch.tools.timing import (card_line, cuda_ms, sync,
+                                         timed_rounds)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 LOG_DIR = os.path.join(REPO, "chiprun_out")
@@ -213,69 +235,6 @@ def check(cond, msg):
 
 def log(*a):
     print(*a, flush=True)
-
-
-def sync():
-    import torch
-    torch.cuda.synchronize()
-
-
-# cycles of the card's spin kernel queued ahead of a timed window (~1 ms
-# and ~4 ms at the H100's clocks): the host enqueues the timed calls while
-# the card waits, so the events time the card's work and not the host's
-# launch latency
-PAD_CYCLES = 2_000_000
-ROUND_PAD_CYCLES = 8_000_000
-
-
-def cuda_ms(fn, n: int = 10) -> float:
-    """Median over n runs of one call, timed with CUDA events."""
-    import torch
-    fn()
-    sync()
-    times = []
-    for _ in range(n):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(PAD_CYCLES)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def timed_rounds(fns: dict, rounds: int = 7, runs: int = 20) -> dict:
-    """Several functions timed in turns: each round runs every function
-    `runs` times back to back between two CUDA events, the order reversed
-    every round → {label: [ms a call, one per round]}."""
-    import torch
-    for fn in fns.values():
-        fn()
-    sync()
-    out = {k: [] for k in fns}
-    labels = list(fns)
-    for i in range(rounds):
-        for label in (labels if i % 2 == 0 else labels[::-1]):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(ROUND_PAD_CYCLES)
-            start.record()
-            for _ in range(runs):
-                fns[label]()
-            end.record()
-            end.synchronize()
-            out[label].append(start.elapsed_time(end) / runs)
-    return out
-
-
-def card_line() -> str:
-    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    check(res.returncode == 0, f"nvidia-smi failed: {res.stderr}")
-    return res.stdout.strip().splitlines()[0]
 
 
 def errors(a, b):
@@ -1110,108 +1069,15 @@ def interleaved(engines: dict, n_pairs: int) -> dict:
     return out
 
 
-def _merged_us(intervals) -> float:
-    """Length of the union of (start, end) intervals."""
-    total, cur_s, cur_e = 0.0, None, None
-    for s, e in sorted(intervals):
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        total += cur_e - cur_s
-    return total
-
-
-def profile_frames(eng, n: int = 3, frame_fn=None) -> dict:
-    """torch.profiler over n frames of frame_fn (by default eager frames,
-    whose stages are profiler ranges): host ms per engine stage (eager
-    frames only: a replay runs no Python), device busy share of the
-    window, device busy ms and kernels per frame and the top device
-    kernels."""
-    frame_fn = frame_fn or eng._eager_frame
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from rtvb_tpu_torch.render.renderer import STAGES
-    sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            frame_fn()
-        sync()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.events()
-    # device work: kernels, copies, sets (not the ranges' device mirrors)
-    dev = [e for e in events if e.device_type == DeviceType.CUDA
-           and e.name not in STAGES]
-    busy_ms = _merged_us([(e.time_range.start, e.time_range.end)
-                          for e in dev]) / 1e3
-    host = [e for e in events if e.device_type == DeviceType.CPU]
-    span_ms = (max(e.time_range.end for e in host)
-               - min(e.time_range.start for e in host)) / 1e3
-    # a device event belongs to the stage whose host range began last
-    # before it started (exact while the device does not lag the host)
-    ranges = sorted((e.time_range.start, e.name) for e in host
-                    if e.name in STAGES)
-    starts = [s for s, _ in ranges]
-    per_stage: dict = {name: [] for name in STAGES}
-    for k in dev:
-        i = bisect.bisect_right(starts, k.time_range.start) - 1
-        if i >= 0:
-            per_stage[ranges[i][1]].append(
-                (k.time_range.start, k.time_range.end))
-    stages = {}
-    for name in STAGES if ranges else ():
-        rng = [e for e in host if e.name == name]
-        check(len(rng) == n, f"profiler saw {len(rng)} {name} ranges")
-        stages[name] = dict(
-            host_ms=sum(e.time_range.elapsed_us() for e in rng) / n / 1e3,
-            device_busy_ms=_merged_us(per_stage[name]) / 1e3 / n,
-            device_events_per_frame=len(per_stage[name]) / n)
-    by_name: dict = {}
-    for e in dev:
-        by_name.setdefault(e.name, [0, 0.0])
-        by_name[e.name][0] += 1
-        by_name[e.name][1] += e.time_range.elapsed_us() / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
-    # CUDA runtime calls on the host: launches, copies, synchronisations
-    api: dict = {}
-    for e in host:
-        if e.name.startswith("cuda"):
-            api.setdefault(e.name, [0, 0.0])
-            api[e.name][0] += 1
-            api[e.name][1] += e.time_range.elapsed_us() / 1e3
-    check(dev, "the profiler saw no device work")
-    return dict(frames=n, wall_ms_per_frame=wall_ms / n,
-                span_ms=span_ms, device_busy_ms=busy_ms,
-                device_busy_ms_per_frame=busy_ms / n,
-                device_busy_share=busy_ms / span_ms if span_ms else None,
-                device_kernels_per_frame=len(dev) / n, stages=stages,
-                top_kernels=[dict(name=k[:80], count=c, ms_per_frame=t / n)
-                             for k, (c, t) in top],
-                runtime_calls={k: dict(per_frame=c / n, ms_per_frame=t / n)
-                               for k, (c, t) in sorted(
-                                   api.items(), key=lambda kv: -kv[1][1])})
-
-
-def log_profile(label: str, prof: dict):
-    log(f"profile of {prof['frames']} frames ({label}): "
-        f"{prof['wall_ms_per_frame']:.3f} ms/frame under the profiler, "
-        f"device busy {prof['device_busy_share']:.4f} of the window "
-        f"({prof['device_busy_ms_per_frame']:.3f} ms a frame), "
-        f"{prof['device_kernels_per_frame']:.0f} device ops/frame")
+def profile(label: str, frame_fn, eng, n: int = 3) -> dict:
+    """torch.profiler over n frames of frame_fn (device_trace's summary,
+    without the callers' ranges), logged; eager frames must show each stage's
+    range once a frame."""
+    prof = DT.profile_frames(frame_fn, n, eng.device, callers=False)
     for name, st in prof["stages"].items():
-        log(f"  {name:15s} host {st['host_ms']:.3f} ms  device busy "
-            f"{st['device_busy_ms']:.3f} ms  "
-            f"{st['device_events_per_frame']:.0f} device ops")
-    for k in prof["top_kernels"][:8]:
-        log(f"  {k['ms_per_frame']:.4f} ms/frame  x{k['count']}  {k['name']}")
-    for name, c in list(prof["runtime_calls"].items())[:6]:
-        log(f"  host {name}: {c['per_frame']:.1f} calls, "
-            f"{c['ms_per_frame']:.3f} ms per frame")
+        check(st["ranges"] == n, f"profiler saw {st['ranges']} {name} ranges")
+    DT.log_summary(label, prof, log)
+    return prof
 
 
 def copy_states(src, dst):
@@ -2267,10 +2133,9 @@ def graph_phase(shipped, K) -> dict:
         log(f"frame {eng.out_width}x{eng.out_height} in turns, {label} (ms a"
             f" frame): median {statistics.median(ts):.3f}, range "
             f"{min(ts):.3f} - {max(ts):.3f} {[round(t, 3) for t in ts]}")
-    prof_replay = profile_frames(eng, frame_fn=eng.render_realtime_device)
-    log_profile("one-frame replays", prof_replay)
-    prof_eager = profile_frames(eng)
-    log_profile("eager frames", prof_eager)
+    prof_replay = profile("one-frame replays", eng.render_realtime_device,
+                          eng)
+    prof_eager = profile("eager frames", eng._eager_frame, eng)
     out["memory"] = memory_cycles(eng, None)
     out.update(turns_ms=turns, peak_eager_bytes=peak_eager,
                peak_graphs_bytes=peak_graphs,
@@ -2278,6 +2143,131 @@ def graph_phase(shipped, K) -> dict:
                first_frame_eager_ms={k: g["eager_ms"]
                                      for k, g in captures.items()},
                profile_replay=prof_replay, profile_eager=prof_eager)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The profiling tools (rtvb_tpu_torch/tools/) on the card
+# ---------------------------------------------------------------------------
+
+TRACE_SCALES = {"1": 1.0, "1/2": 0.5}     # device_trace: main path, a rung
+PROFILE_SCALES = {"1": 1.0, "2/3": 2.0 / 3.0}
+TOOLS_BAR = 0.10   # eager busy against replays, ablate full against the stage
+TIMING_TOOLS_FLAG = "--timing-tools"   # the timing tools' own process
+
+
+def within(a: float, b: float, bar: float = TOOLS_BAR) -> bool:
+    return abs(a - b) <= bar * abs(b)
+
+
+def timing_tools(path: str) -> int:
+    """The four timing tools on one 1080p engine with the shipped
+    settings: profile_frame at scale 1 and 2/3, ablate_pt at 2/3 with
+    every variant, micro_pt and micro_post; their tables printed, their
+    results written to `path` as JSON.  It runs as a process of its own
+    (`chip_smoke.py --timing-tools PATH`), one that has run no profiler:
+    after a torch.profiler session, replays timed in the same process
+    drift by up to a tenth from one second to the next, and this
+    script profiles in earlier phases."""
+    import torch
+    from rtvb_tpu_torch.core.config import Settings
+    from rtvb_tpu_torch.render.renderer import Engine
+    from rtvb_tpu_torch.tools import (ablate_pt, micro_post, micro_pt,
+                                      profile_frame)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    fw, fh = FRAME
+    eng = Engine(settings=Settings().replace(rendering={
+        "render_width": fw, "render_height": fh}), device="cuda")
+    out = {"profile_frame": {}}
+    for label, scale in PROFILE_SCALES.items():
+        res = profile_frame.profile_frame("cuda", scale, engine=eng)
+        out["profile_frame"][label] = res
+        profile_frame.report(res, out=log)
+    out["ablate_pt"] = ablate_pt.ablate_pt("cuda", PROFILE_SCALES["2/3"],
+                                           ablate_pt.VARIANTS, engine=eng)
+    ablate_pt.report(out["ablate_pt"], out=log)
+    out["micro_pt"] = micro_pt.micro_pt("cuda", engine=eng)
+    micro_pt.report(out["micro_pt"], out=log)
+    out["micro_post"] = micro_post.micro_post("cuda")
+    micro_post.report(out["micro_post"], out=log)
+    with open(path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def tools_phase(shipped) -> dict:
+    """The five tools at 1920×1080 with the shipped settings: first the
+    timing tools in a process of their own (`timing_tools`: profile_frame
+    at scale 1 and 2/3; ablate_pt at 2/3 with every variant, its full
+    replay within 10% of profile_frame's path-trace replay; micro_pt;
+    micro_post), then device_trace here at scale 1 and at the 1/2 rung
+    on one engine, each hand kernel in its kernel-name group with the
+    launch counters' count for the same eager frames (K1-K6 at scale 1,
+    K7 too at 1/2), the port functions holding ≥ 95% of the eager device
+    time and the eager frames' device busy ms within 10% of the
+    replays'."""
+    import subprocess
+    import torch
+    from rtvb_tpu_torch.render.renderer import Engine
+    t0 = time.perf_counter()
+    sync()
+    torch.cuda.empty_cache()
+    path = os.path.join(LOG_DIR, "timing_tools.json")
+    res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          TIMING_TOOLS_FLAG, path], cwd=REPO,
+                         capture_output=True, text=True, timeout=600)
+    for line in res.stdout.splitlines():
+        log(line)
+    check(res.returncode == 0, f"the timing tools' process exited "
+          f"{res.returncode}: {res.stderr[-4000:]}")
+    with open(path) as f:
+        out = json.load(f)
+    out["timing_tools_s"] = time.perf_counter() - t0
+    pt_ms = out["profile_frame"]["2/3"]["stages"]["path trace (ReSTIR)"][
+        "replay_ms"]
+    full_ms = out["ablate_pt"]["variants"]["full"]["replay_ms"]
+    log(f"  ablate_pt full {full_ms:.3f} ms, profile_frame's path trace "
+        f"{pt_ms:.3f} ms (replays at 2/3, each the mean over captures)")
+    check(within(full_ms, pt_ms), f"ablate_pt full {full_ms} ms against "
+          f"profile_frame's path trace {pt_ms} ms")
+    eng = Engine(settings=shipped, device="cuda")
+    out["device_trace"] = {}
+    for label, scale in TRACE_SCALES.items():
+        res = DT.device_trace("cuda", scale, engine=eng)
+        out["device_trace"][label] = res
+        e, r = res["eager"], res["replay"]
+        n = res["frames"]
+        log(f"  device_trace at scale {label}: {n} eager frames, device busy "
+            f"{e['device_busy_ms_per_frame']:.3f} ms a frame "
+            f"({e['kernels_per_frame']:.0f} kernels), replays "
+            f"{r['device_busy_ms_per_frame']:.3f} ms "
+            f"({r['kernels_per_frame']:.0f} kernels); port functions hold "
+            f"{e['function_share']:.4f}, int64 ops {e['int64_share']:.4f}")
+        log(f"  top port functions at scale {label}, device ms a frame:")
+        for row in e["by_function"][:15]:
+            log(f"    {row['ms_per_frame']:9.4f}  x{row['per_frame']:7.1f}"
+                f"  {row['name']}")
+        hand = {k: v["count"] for k, v in e["hand_kernels"].items()}
+        log(f"  hand kernels in the kernel groups {hand}, launch counters "
+            f"{res['launches']}")
+        for name in KERNELS:
+            check(hand[name] == res["launches"][name],
+                  f"device_trace at {label}: {name} {hand[name]} kernels, "
+                  f"{res['launches'][name]} launches")
+            check(hand[name] > 0 or (name in RUNG_ONLY and scale == 1.0),
+                  f"device_trace at {label}: no {name} kernel")
+        check(e["function_share"] >= 0.95, f"device_trace at {label}: port "
+              f"functions hold {e['function_share']}")
+        check(within(e["device_busy_ms_per_frame"],
+                     r["device_busy_ms_per_frame"]),
+              f"device_trace at {label}: eager busy "
+              f"{e['device_busy_ms_per_frame']} against replays' "
+              f"{r['device_busy_ms_per_frame']}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  the tools took {out['seconds']:.1f} s (the timing tools' "
+        f"process {out['timing_tools_s']:.1f} s)")
     return out
 
 
@@ -2692,6 +2682,8 @@ def bands_phase(K, rep: Report) -> dict:
     _, atrous, _, warps = capture_frame_calls(eng, second_frame)
     kernels = band_kernel_cases(bands, shade, warps, atrous, rep)
     del shade, atrous, warps, s1
+    # K5 nearest at the band's height against its library yardstick
+    kernels["warp_vs_grid_sample"] = warp_vs_grid_sample(bands.ext, fw, dev)
 
     # each band step's ms (host clock around work that ends in a sync),
     # then the banded frame against the unsharded one in turns
@@ -3375,14 +3367,13 @@ def resident_blocks(eng, ptxas: list) -> dict:
     return dict(sorted(out.items()))
 
 
-def warp_vs_grid_sample(eng, rounds: int = 7, runs: int = 20) -> dict:
-    """K5 nearest against torch's grid_sample on the same planes and
-    coordinates, in turns: `rounds` rounds of `runs` calls each, the order
-    reversed every round; the ratio K5 / grid_sample per round."""
+def warp_vs_grid_sample(H: int, W: int, dev, rounds: int = 7,
+                        runs: int = 20) -> dict:
+    """K5 nearest against torch's grid_sample on the same 8 planes of H×W
+    and coordinates, in turns: `rounds` rounds of `runs` calls each, the
+    order reversed every round; the ratio K5 / grid_sample per round."""
     import torch
     from rtvb_tpu_torch.ops import warp_kernel
-    dev = eng.device
-    H, W = eng.height, eng.width
     gen = torch.Generator(device="cpu").manual_seed(11)
     yy, xx = torch.meshgrid(torch.arange(H, device=dev, dtype=torch.float32),
                             torch.arange(W, device=dev, dtype=torch.float32),
@@ -3400,12 +3391,16 @@ def warp_vs_grid_sample(eng, rounds: int = 7, runs: int = 20) -> dict:
             align_corners=False)}, rounds, runs)
     ratios = [a / b for a, b in zip(t["k5"], t["grid_sample"])]
     slower = sum(r > 1.0 for r in ratios)
-    log(f"K5 nearest / grid_sample over {rounds} rounds of {runs}: median "
+    log(f"K5 nearest at {W}x{H} / grid_sample over {rounds} rounds of "
+        f"{runs}: median "
         f"{statistics.median(ratios):.4f}, range {min(ratios):.4f} - "
         f"{max(ratios):.4f}; K5 slower in {slower} of {rounds} rounds; ms "
         f"K5 {[round(x, 4) for x in t['k5']]}, grid_sample "
         f"{[round(x, 4) for x in t['grid_sample']]}")
-    return dict(ms=t, ratios=ratios, median_ratio=statistics.median(ratios),
+    return dict(shape=[H, W], ms=t, ratios=ratios,
+                median_ratio=statistics.median(ratios),
+                k5_ms=statistics.median(t["k5"]),
+                grid_sample_ms=statistics.median(t["grid_sample"]),
                 k5_slower_rounds=slower)
 
 
@@ -3462,7 +3457,7 @@ def main() -> int:
     traces, atrous, tris, _ = capture_frame_calls(eng)
     substeps = kernel_cases(eng, rep, traces, atrous, tris)
     del traces, atrous, tris
-    k5_rounds = warp_vs_grid_sample(eng)
+    k5_rounds = warp_vs_grid_sample(eng.height, eng.width, eng.device)
     shade_diffs = shade_kernel_cases(eng, rep)
     # K7 on the tone-mapped frame each rung hands to EASU, and on a mixed
     # per-axis ratio: the 2/3 rung of 320×180 renders 214×120
@@ -3523,10 +3518,9 @@ def main() -> int:
     log(f"fused faster than in-line in {wins} of {len(ab['fused'])} turns")
 
     phase("profiles")
-    prof = profile_frames(eng)
-    log_profile(f"shipped settings {fw}x{fh}", prof)
-    prof_inline = profile_frames(inline)
-    log_profile(f"in-line shading {fw}x{fh}", prof_inline)
+    prof = profile(f"shipped settings {fw}x{fh}", eng._eager_frame, eng)
+    prof_inline = profile(f"in-line shading {fw}x{fh}", inline._eager_frame,
+                          inline)
     del inline
 
     phase("card vs CPU")
@@ -3564,8 +3558,8 @@ def main() -> int:
     for label, ts in rung_turns.items():
         log(f"frame {fw}x{fh} in turns, scale {label}: median "
             f"{statistics.median(ts):.3f} ms {[round(t, 3) for t in ts]}")
-    prof_half = profile_frames(by_rung["1/2"])
-    log_profile(f"1/2 rung {fw}x{fh}", prof_half)
+    prof_half = profile(f"1/2 rung {fw}x{fh}", by_rung["1/2"]._eager_frame,
+                        by_rung["1/2"])
     del by_rung
     phase("DynamicResolution walk")
     walk = dynres_walk(eng, K)
@@ -3603,6 +3597,11 @@ def main() -> int:
     # the frame as a CUDA graph: replays and batches against eager frames,
     # bit for bit, then their costs in turns
     graph = graph_phase(shipped, K)
+
+    phase("tools")
+    # the port's profiling tools at the main path's scale and at rungs:
+    # device time by kernel, op, function and stage, stages, ablations
+    tools = tools_phase(shipped)
 
     phase("bands")
     # the frame as 4 extended row bands on the one card, a real NCCL group
@@ -3688,7 +3687,7 @@ def main() -> int:
                        rungs=rungs, rung_turns_ms=rung_turns,
                        profile_half_rung=prof_half, dynres_walk=walk,
                        gameplay=play, entities=entities, graph=graph,
-                       bands=bands,
+                       tools=tools, bands=bands,
                        interactive=session, goldens=goldens,
                        offline_launches=offline_counts,
                        accumulated_ms=accumulated, phase_s=phase_s,
@@ -3704,7 +3703,10 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        rc = main()
+        if sys.argv[1:2] == [TIMING_TOOLS_FLAG]:
+            rc = timing_tools(sys.argv[2])
+        else:
+            rc = main()
     except Exception:       # report any failure and exit non-zero
         traceback.print_exc()
         rc = 1

@@ -55,7 +55,11 @@ frame), and offline.main --test-canonical at 128².  The frame as 4
 extended row bands at 1080p (chip_smoke's bands phase): the first banded
 frame equal to the unsharded one (u8, own rows of the slow history and of
 every reservoir plane to the bit), and K4 at the bands from rows 0, 233
-and 736 (344 rows) on a banded frame's own calls, bit for bit."""
+and 736 (344 rows) on a banded frame's own calls, bit for bit.  The
+profiling tools: device_trace at 320×180 finds K1-K6 under their own
+kernel names, each with the launch counters' count for the same eager
+frames, and K7 nowhere at scale 1; timing.time_piece times each of its
+captures apart and reports their mean."""
 import os
 
 import numpy as np
@@ -991,3 +995,27 @@ def test_shade_kernel_at_band_offsets(band_shade_calls, y0):
         assert a[8][0].shape == (344, 1920)
         cs.bit_exact_shade(RK.fused_shade_cuda(*a, **kw),
                            RK.fused_shade_plain(*a, **kw))
+
+
+def test_device_trace_finds_the_hand_kernels(cuda):
+    from rtvb_tpu_torch.tools import device_trace
+    res = device_trace.device_trace("cuda", 1.0, frames=2, width=320,
+                                    height=180)
+    hand = res["eager"]["hand_kernels"]
+    for name in ("trace", "tri", "texture", "shade", "warp", "atrous"):
+        assert hand[name]["count"] == res["launches"][name] > 0, name
+    assert hand["easu"]["count"] == res["launches"]["easu"] == 0
+    assert res["eager"]["function_share"] >= 0.95
+    assert res["replay"]["kernels_per_frame"] > 0
+
+
+def test_time_piece_means_over_captures(cuda):
+    """Each capture's replays timed apart; replay_ms is their mean."""
+    from rtvb_tpu_torch.tools import timing
+    x = torch.rand(1 << 20, device=cuda)
+    t = timing.time_piece(lambda: x * 2.0 + 1.0, cuda, keep=(x,),
+                          n_eager=2, n_replay=3)
+    ms = t["replay_ms_by_capture"]
+    assert len(ms) == timing.CAPTURES and all(m > 0.0 for m in ms)
+    assert t["replay_ms"] == pytest.approx(sum(ms) / len(ms))
+    assert t["capture_ms"] > 0.0 and t["eager_ms"] > 0.0
