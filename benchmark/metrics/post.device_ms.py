@@ -1,0 +1,9 @@
+"""post.device_ms: device ms a frame of the work launched under the
+`rtvb.post` range, from the eager frames profiled after the window
+(attribution by correlation id)."""
+
+
+def read(run):
+    if run.extras is None:
+        return None
+    return run.extras["stages"].get("rtvb.post")
