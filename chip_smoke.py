@@ -1394,8 +1394,7 @@ def gameplay(shipped, K, rep: Report) -> dict:
     lit_capture = eng.graph_log[-1]
     check(lit_capture["key"][-1] == eng._n_local,
           f"the first lit frame captured no lit graph: {lit_capture}")
-    log(f"the lit variant's graph: its first frame eager "
-        f"{lit_capture['eager_ms']:.3f} ms, capture "
+    log(f"the lit variant's graph: capture "
         f"{lit_capture['capture_ms']:.3f} ms")
     check(eng._n_local == eng.settings.rendering.local_light_candidates,
           "the lantern did not light the frame")
@@ -2140,8 +2139,6 @@ def graph_phase(shipped, K) -> dict:
     out.update(turns_ms=turns, peak_eager_bytes=peak_eager,
                peak_graphs_bytes=peak_graphs,
                capture_ms={k: g["capture_ms"] for k, g in captures.items()},
-               first_frame_eager_ms={k: g["eager_ms"]
-                                     for k, g in captures.items()},
                profile_replay=prof_replay, profile_eager=prof_eager)
     return out
 
@@ -3014,12 +3011,12 @@ def interactive_session(K, width: int, height: int, worlds_dir: str,
     check(lit, "the session's lantern lit no light")
     check(captured == predicted,
           f"captures at frames {captured}, the rule predicts {predicted}")
-    capture_log = [dict(frame=f, key=list(g["key"]), eager_ms=g["eager_ms"],
+    capture_log = [dict(frame=f, key=list(g["key"]),
                         capture_ms=g["capture_ms"])
                    for f, g in zip(captured, eng.graph_log)]
     for c in capture_log:
-        log(f"  capture at frame {c['frame']}: key {c['key']}, its frame "
-            f"eager {c['eager_ms']:.3f} ms, capture {c['capture_ms']:.3f} ms")
+        log(f"  capture at frame {c['frame']}: key {c['key']}, capture "
+            f"{c['capture_ms']:.3f} ms")
 
     # the edits: the dig, then the lantern in the dug cell
     (dig_frame, dig), (lantern_frame, lantern) = eng.picks[0], eng.picks[1]

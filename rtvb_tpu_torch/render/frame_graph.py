@@ -27,6 +27,7 @@ import torch
 
 from .. import kernels as K
 from ..core.camera import Camera, camera_view
+from ..utils.perf import TRACER
 
 # 32-bit words ahead of the remap: the frame index (int64, 2 words), dt,
 # the camera's 7 leaves, the history camera's 7 leaves
@@ -111,7 +112,8 @@ def _pinned(arr) -> torch.Tensor:
 def upload(arr, device: torch.device) -> torch.Tensor:
     """A new tensor on `device` holding host array `arr`, copied on the
     current stream (on a CUDA device from pinned memory, without a wait
-    for the stream's queued work)."""
+    for the stream's queued work); its bytes count on the open span."""
+    TRACER.count("bytes", np.asarray(arr).nbytes)
     if device.type != "cuda":
         return torch.from_numpy(np.array(arr, order="C"))
     return _pinned(arr).to(device, non_blocking=True)
@@ -137,7 +139,9 @@ def write_fields(fields, arrays: dict) -> bool:
 
 def copy_in(t: torch.Tensor, arr) -> None:
     """Write host array `arr` into `t` in place, on the current stream (on
-    a CUDA device from pinned memory, without a wait)."""
+    a CUDA device from pinned memory, without a wait); its bytes count on
+    the open span."""
+    TRACER.count("bytes", t.nbytes)
     if t.device.type == "cuda":
         t.copy_(_pinned(arr), non_blocking=True)
     else:
@@ -168,28 +172,32 @@ class FrameGraph(NamedTuple):
     """One captured graph of nb frames: its output (the u8 frame or the
     (nb, h, w, 3) stack, in the graph's pool), the kernel launches one
     replay makes, the tensors it reads by address (held so they stay
-    alive), the host ms of its capture (instantiation included)."""
+    alive), the host ms of its capture (instantiation included), the
+    device stamps its frame records (a `perf.Stamps`, or None)."""
     graph: torch.cuda.CUDAGraph
     out: torch.Tensor
     launches: dict
     keep: tuple
     capture_ms: float
+    stamps: object = None
 
     def replay(self) -> torch.Tensor:
         """Replay on the current stream; returns the graph's own output
         (overwritten by the next replay)."""
         self.graph.replay()
         K.add_launches(self.launches)
+        TRACER.ran(self.stamps)
         return self.out
 
     def release(self) -> None:
         self.graph.reset()
 
 
-def capture(body, keep) -> FrameGraph:
+def capture(body, keep, stamps=None) -> FrameGraph:
     """Capture body() → output tensor into a new graph with its own
-    memory pool.  The caller has run the same body eagerly first (kernel
-    modules loaded, caches filled).  A capture that fails raises."""
+    memory pool; `stamps`: those body records (the graph's own).  The
+    caller has run the same body eagerly first (kernel modules loaded,
+    caches filled).  A capture that fails raises."""
     graph = torch.cuda.CUDAGraph()
     t0 = time.perf_counter()
     with K.recording_launches() as launches:
@@ -200,4 +208,4 @@ def capture(body, keep) -> FrameGraph:
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     return FrameGraph(graph=graph, out=out, launches=dict(launches),
-                      keep=tuple(keep), capture_ms=ms)
+                      keep=tuple(keep), capture_ms=ms, stamps=stamps)

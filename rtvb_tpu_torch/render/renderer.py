@@ -14,7 +14,9 @@ jitted `_frame_fn` and `lax.scan` `_frame_batch_fn`); the first frame of
 a graph runs eagerly and captures it, and a graph whose tensors were
 replaced (an edit, a sky, settings) is released and captured anew.
 `_eager_frame` runs the captured function eagerly, for code that must see
-the frame's own calls; on the CPU every frame runs so.
+the frame's own calls; on the CPU every frame runs so.  Each frame and
+edit records its host phases as spans of `utils.perf.TRACER`, and on a
+CUDA device the frame body five device stamps, which a graph replays.
 `Engine()` runs the shipped `Settings()`: fused shading (the K4 kernel)
 at native resolution.  `slice_settings()` is the same with the in-line
 shading composition (fused_shading False).  Below render_scale 1 (the
@@ -42,14 +44,12 @@ from __future__ import annotations
 import dataclasses
 import os
 import threading
-import time
 import traceback
 import types
 import warnings
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..assets.blocks import BlockRegistry
 from ..core.config import Settings
@@ -61,6 +61,7 @@ from ..assets.materials import MaterialRegistry
 from ..assets.textures import TEXTURE_IDS
 from ..core.camera import Camera, camera_leaves
 from ..ops.dda import TraceTables, trace, trace_params, trace_tables
+from ..utils.perf import TRACER, Stamps
 from ..world import gen, lighting, voxel
 from . import frame_graph, pathtracer, postprocess
 from . import restir as restir_mod
@@ -71,7 +72,7 @@ from .postprocess import PostState
 
 _DATA = os.path.join(os.path.dirname(__file__), "..", "..", "data")
 
-# profiler ranges of render_realtime_device, in frame order
+# the frame's stage spans (TRACER), as profiler ranges, in frame order
 STAGES = ("rtvb.pathtrace", "rtvb.denoise", "rtvb.post")
 
 
@@ -200,6 +201,9 @@ class Engine:
         self._graphs: dict = {}
         self._graph_identity = None
         self.graph_log: list = []
+        # the device stamps of frames run eagerly (a graph owns its own)
+        self._stamps = Stamps(self.device) \
+            if self.device.type == "cuda" else None
 
     def __copy__(self):
         """A shallow copy with its own input buffer, feedback states,
@@ -214,6 +218,7 @@ class Engine:
         new._graphs = {}
         new._graph_identity = None
         new.graph_log = []
+        new._stamps = None if self._stamps is None else Stamps(self.device)
         new.world = voxel.VoxelWorld(*(t.clone() for t in self.world))
         new._world_np = (new.world, self._host_tables())
         new._tables = trace_tables(new.world, self.materials)
@@ -418,12 +423,22 @@ class Engine:
         return self.set_blocks([[x, y, z]], [block_id])
 
     def set_blocks(self, xyz, ids):
-        """Bulk edit: N placements / removals, one table + light rebuild."""
-        t0 = time.perf_counter()
-        blocks = self._host_tables()["blocks"].copy()
-        xyz = np.asarray(xyz, np.int64).reshape(-1, 3)
-        blocks[xyz[:, 0], xyz[:, 1], xyz[:, 2]] = np.asarray(ids, np.uint8)
-        return self._after_edit(blocks, t0)
+        """Bulk edit: N placements / removals, one table + light rebuild
+        on the host (span `edit.rebuild`, whose ms `last_edit["host_ms"]`
+        holds), the upload (`edit.upload`, counting the bytes) and the
+        soup's static rows (`edit.soup`, the same)."""
+        with TRACER.span("edit.rebuild") as rebuild:
+            blocks = self._host_tables()["blocks"].copy()
+            xyz = np.asarray(xyz, np.int64).reshape(-1, 3)
+            blocks[xyz[:, 0], xyz[:, 1], xyz[:, 2]] = np.asarray(ids,
+                                                                 np.uint8)
+            tables, light_arrays, remap = self._rebuild(blocks)
+        with TRACER.span("edit.upload"):
+            remap_t = self._upload_edit(tables, light_arrays, remap)
+        with TRACER.span("edit.soup"):
+            self._soup_static()
+        self.last_edit = dict(host_ms=rebuild.ms)
+        return remap_t
 
     def delete_block(self, x: int, y: int, z: int):
         return self.set_block(x, y, z, 0)
@@ -471,15 +486,11 @@ class Engine:
         return voxel.HostWorld(blocks=self._host_tables()["blocks"],
                                version=self.world_version)
 
-    def _after_edit(self, blocks: np.ndarray, t0: float):
+    def _rebuild(self, blocks: np.ndarray):
         """Rebuild the world's tables, the light table, the slot remap and
         the decoration rows on the host from the edited grid (growing the
         exception list to the next power of two if the edit overflowed
-        it), then write them into the device tables in place where the
-        shapes stand — after every frame queued so far, before the next —
-        or replace the tables that changed shape.  The remap is consumed
-        by the next frame.  `last_edit` gets the host ms of the rebuild
-        and of the uploads."""
+        it) → (tables, light arrays, remap)."""
         host = self._host_tables()
         nonsolid = self._nonsolid_ids()
         tables = voxel.build_tables_np(self.cfg, blocks, host["schema"],
@@ -502,41 +513,48 @@ class Engine:
         self.world_version += 1
         self._decor_np = None
         self._decoration_triangles()
-        t1 = time.perf_counter()
+        return tables, light_arrays, remap
 
+    def _upload_edit(self, tables: dict, light_arrays: dict,
+                     remap: np.ndarray) -> torch.Tensor:
+        """Write the rebuilt tables into the device tables in place where
+        the shapes stand — after every frame queued so far, before the
+        next — or replace the tables that changed shape (their bytes
+        counted, as `frame_graph.copy_in` counts the rest), and upload the
+        remap the next frame consumes → the remap on the device."""
         if not frame_graph.write_fields(self.world, tables):
             self.world = voxel.world_from_numpy(tables, self.device)
             self._world_np = (self.world, tables)
             self._tables = trace_tables(self.world, self.materials)
+            TRACER.count("bytes", sum(t.nbytes for t in self.world))
         if not frame_graph.write_fields(self.lights, light_arrays):
             self.lights = lighting.light_table_from_numpy(light_arrays,
                                                           self.device)
             self._lights_np = (self.lights, light_arrays)
+            TRACER.count("bytes", sum(t.nbytes for t in self.lights))
         remap_t = frame_graph.upload(remap, self.device)
         self._light_remap = remap_t     # consumed by the next frame
         self._remap_host = (remap_t, remap)
         self._staged = False
         self._tp = trace_params(self.cfg, self._tp.max_steps)
-        self._soup_static()
-        self.last_edit = dict(host_ms=(t1 - t0) * 1e3,
-                              upload_ms=(time.perf_counter() - t1) * 1e3)
         return remap_t
 
     def pick_block(self, max_dist: float = 8.0):
         """Camera-centre voxel pick: one ray through the trace (K1 on the
         card), capped at max_dist.  Returns (hit, (x, y, z), (nx, ny,
-        nz))."""
-        cam = self.camera
-        half = torch.tensor(0.5, dtype=torch.float32, device=self.device)
-        d = cam.uv_to_dir(half, half)
-        o = tuple(v.reshape(1) for v in cam.pos)
-        d = tuple(v.reshape(1) for v in d)
-        rec = trace(o, d, self._tables, self._tp,
-                    t_cap=torch.full((1,), max_dist, dtype=torch.float32,
-                                     device=self.device))
-        vals = torch.stack([rec.hit.to(torch.float32), *(
-            c.to(torch.float32) for c in (rec.ix, rec.iy, rec.iz, rec.nx,
-                                          rec.ny, rec.nz))]).cpu()
+        nz)); span `edit.pick`, the read to the host included."""
+        with TRACER.span("edit.pick"):
+            cam = self.camera
+            half = torch.tensor(0.5, dtype=torch.float32, device=self.device)
+            d = cam.uv_to_dir(half, half)
+            o = tuple(v.reshape(1) for v in cam.pos)
+            d = tuple(v.reshape(1) for v in d)
+            rec = trace(o, d, self._tables, self._tp,
+                        t_cap=torch.full((1,), max_dist, dtype=torch.float32,
+                                         device=self.device))
+            vals = torch.stack([rec.hit.to(torch.float32), *(
+                c.to(torch.float32) for c in (rec.ix, rec.iy, rec.iz, rec.nx,
+                                              rec.ny, rec.nz))]).cpu()
         hit, ix, iy, iz, nx, ny, nz = vals[:, 0].tolist()
         return (bool(hit), (int(ix), int(iy), int(iz)),
                 (float(nx), float(ny), float(nz)))
@@ -756,8 +774,10 @@ class Engine:
         bound now: run(tables, mats, lights, sky, cam, hist_cam,
         frame_idx, prev_restir, light_remap, dstate, post_state, dt, ent,
         atlas, overlay) → (u8, new_restir, new_dstate, new_post_state).
-        frame_idx and dt are 0-d device tensors.  The stages are profiler
-        ranges (STAGES); outside a profiler they cost a few µs."""
+        frame_idx and dt are 0-d device tensors.  The stages are TRACER's
+        spans (STAGES), each followed by a device stamp, after one before
+        the path trace (`Tracer.stamp`: recorded only in a frame body's
+        `Tracer.stamping`)."""
         n_local = self._n_local if n_local_override is None \
             else n_local_override
         rs = self.settings.rendering
@@ -771,19 +791,23 @@ class Engine:
         def run(tables, mats, lights, sky_state, cam, hist_cam, frame_idx,
                 prev_restir, light_remap, dstate, post_state, dt, ent,
                 atlas=None, overlay=None):
-            with record_function("rtvb.pathtrace"):
+            TRACER.stamp("begin")
+            with TRACER.span("pathtrace"):
                 g, new_restir = trace_fn(tables, mats, lights, sky_state,
                                          cam, hist_cam, frame_idx,
                                          prev_restir, light_remap, ent,
                                          atlas)
-            with record_function("rtvb.denoise"):
+            TRACER.stamp("pathtrace")
+            with TRACER.span("denoise"):
                 rgb, new_dstate = denoise_frame(g, dstate, dn_cfg)
-            with record_function("rtvb.post"):
+            TRACER.stamp("denoise")
+            with TRACER.span("post"):
                 out, new_pstate = postprocess.run(
                     rgb, post_state, pp, tm, dt, out_h, out_w,
                     overlay_u8=overlay, highlight=g.highlight, consts=consts)
                 out_u8 = (torch.clamp(out, 0.0, 1.0) * 255.0 + 0.5).to(
                     torch.uint8)
+            TRACER.stamp("post")
             return out_u8, new_restir, new_dstate, new_pstate
         return run
 
@@ -805,30 +829,35 @@ class Engine:
     # the real-time frame: eager, or replayed from a captured graph
     # ------------------------------------------------------------------
 
-    def _frame_body(self, nb: int, run):
+    def _frame_body(self, nb: int, run, stamps=None):
         """nb frames from the fixed buffers — frame k at frame index
         frame + k, frame 0 with the history camera and frames 1… with the
         camera as their history, every frame with the same dt and remap,
         each frame's states feeding the next — then the last frame's
-        states written into the fixed state buffers.  Returns the u8 frame
-        (nb 1) or the (nb, h, w, 3) stack.  This is the function a graph
-        captures; `_eager_frame` runs it as it is."""
+        states written into the fixed state buffers, and the closing
+        stamp.  One frame records its stamps into `stamps` (a Stamps or
+        None); a batch none.  Returns the u8 frame (nb 1) or the (nb, h,
+        w, 3) stack.  This is the function a graph captures;
+        `_eager_frame` runs it as it is."""
         inp = self._inputs
         restir, dstate, pstate = (self.restir_state, self.denoiser_state,
                                   self.post_state)
         ent, atlas = self._ent(), self.texture_atlas
         outs = []
-        for k in range(nb):
-            hist = inp.history_camera if k == 0 else inp.camera
-            frame = inp.frame if k == 0 else inp.frame + k
-            u8, new_restir, dstate, pstate = run(
-                self._tables, self.materials, self.lights, self.sky_state,
-                inp.camera, hist, frame, restir, inp.remap, dstate, pstate,
-                inp.dt, ent, atlas, self._ui_overlay)
-            if new_restir is not None:
-                restir = new_restir
-            outs.append(u8)
-        self._write_states(restir, dstate, pstate)
+        with TRACER.stamping(stamps if nb == 1 else None):
+            for k in range(nb):
+                hist = inp.history_camera if k == 0 else inp.camera
+                frame = inp.frame if k == 0 else inp.frame + k
+                u8, new_restir, dstate, pstate = run(
+                    self._tables, self.materials, self.lights,
+                    self.sky_state, inp.camera, hist, frame, restir,
+                    inp.remap, dstate, pstate, inp.dt, ent, atlas,
+                    self._ui_overlay)
+                if new_restir is not None:
+                    restir = new_restir
+                outs.append(u8)
+            self._write_states(restir, dstate, pstate)
+            TRACER.stamp("end")
         return outs[0] if nb == 1 else torch.stack(outs)
 
     def _advance(self, nb: int):
@@ -840,17 +869,29 @@ class Engine:
         self._staged = False
 
     def _frames(self, nb: int, dt: float, graph: bool) -> torch.Tensor:
-        """nb frames: the soup brought up to date (the entities packed once
-        for all nb, as the JAX package passes one soup to its batch), the
-        inputs staged, then the frames eagerly or by a graph."""
-        self._ensure_states()
-        self.entity_buffers()
-        self._stage(dt)
-        if graph:
-            out = self._graph_frames(nb)
-        else:
-            out = self._frame_body(nb, self._build_run())
-        self._advance(nb)
+        """nb frames in TRACER's span `engine.frame`: the soup brought up
+        to date (`engine.soup`; the entities packed once for all nb, as
+        the JAX package passes one soup to its batch), the inputs staged
+        (`engine.stage`), the graph looked up (`engine.identity`; no graph
+        runs eagerly, and the span is empty), then the frames launched
+        (`engine.launch`)."""
+        with TRACER.frame():
+            self._ensure_states()
+            with TRACER.span("engine.soup"):
+                self.entity_buffers()
+            with TRACER.span("engine.stage"):
+                self._stage(dt)
+            with TRACER.span("engine.identity"):
+                key, g = self._graph_lookup(nb) if graph else (None, None)
+            with TRACER.span("engine.launch"):
+                if g is not None:
+                    out = g.replay().clone()
+                elif key is not None:
+                    out = self._capture(key, nb)
+                else:
+                    out = self._frame_body(nb, self._build_run(),
+                                           self._stamps)
+            self._advance(nb)
         return out
 
     def _eager_frame(self, dt: float = 1.0 / 60.0) -> torch.Tensor:
@@ -875,11 +916,10 @@ class Engine:
         self._graphs = {}
         self._graph_identity = None
 
-    def _graph_frames(self, nb: int) -> torch.Tensor:
-        """nb frames by a captured graph, keyed as the JAX package keys
-        its jitted frame functions; the graphs are dropped when any tensor
-        they read was replaced.  A key's first call runs its frames
-        eagerly (on a side stream, as capture asks), then captures."""
+    def _graph_lookup(self, nb: int) -> tuple:
+        """(key, its captured graph or None) of nb frames, keyed as the JAX
+        package keys its jitted frame functions; the graphs are dropped
+        when any tensor they read was replaced."""
         use_restir = self.settings.rendering.use_restir
         key = ("frame" if nb == 1 else ("frame_batch", nb), self.width,
                self.height, self.out_width, self.out_height, use_restir,
@@ -889,25 +929,26 @@ class Engine:
         if ident != self._graph_identity:
             self.release_graphs()
             self._graph_identity = ident
-        g = self._graphs.get(key)
-        if g is not None:
-            return g.replay().clone()
+        return key, self._graphs.get(key)
+
+    def _capture(self, key: tuple, nb: int) -> torch.Tensor:
+        """A key's first call: its nb frames eagerly (on a side stream, as
+        capture asks), then the capture, with stamps of its own."""
         run = self._build_run()
         cur = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(cur)
-        t0 = time.perf_counter()
         with torch.cuda.stream(side):
-            out = self._frame_body(nb, run)
+            out = self._frame_body(nb, run, self._stamps)
         cur.wait_stream(side)
         out.record_stream(cur)
         torch.cuda.synchronize(self.device)
-        eager_ms = (time.perf_counter() - t0) * 1e3
-        g = frame_graph.capture(lambda: self._frame_body(nb, run),
-                                frame_graph.tensors(self._graph_inputs()))
+        stamps = Stamps(self.device) if nb == 1 else None
+        g = frame_graph.capture(lambda: self._frame_body(nb, run, stamps),
+                                frame_graph.tensors(self._graph_inputs()),
+                                stamps)
         self._graphs[key] = g
-        self.graph_log.append(dict(key=key, eager_ms=eager_ms,
-                                   capture_ms=g.capture_ms))
+        self.graph_log.append(dict(key=key, capture_ms=g.capture_ms))
         return out
 
     def render_realtime_device(self, dt: float = 1.0 / 60.0) -> torch.Tensor:

@@ -20,7 +20,10 @@ since the profiler's own stacks (`with_stack`) reach its event list in
 some torch versions only (not in the card's 2.11).  Also: the window's
 wall span and the device's busy share, device ops a frame, the largest
 idle holes with the device ops on either side, and the copies and
-memsets apart (the JAX tool's async copies).  Beside it, N replays of
+memsets apart (the JAX tool's async copies); each hole also names the
+innermost program span (the engine's tracer, `utils/perf.py`: a range
+`rtvb.<span>` under a profiler) open on the host at its start.  Beside
+it, N replays of
 the captured frame, in turns with the eager frames in the same profile
 (`profile_interleaved`): the device busy ms and kernels a frame that
 the eager attribution must account for (a replay's kernels correlate to
@@ -65,6 +68,9 @@ NO_STAGE = "(outside the stages)"
 # the windows of one profile that interleaves eager frames and replays
 EAGER_WINDOW = "rtvb.window.eager"
 REPLAY_WINDOW = "rtvb.window.replay"
+# ranges of this tool's own, not the program's spans
+TOOL_RANGES = (FN_RANGE, KERNEL_RANGE, "rtvb.window.")
+NO_SPAN = "(no span)"
 # a hand kernel's CUDA function, by its registry name in kernels.ALL
 HAND_KERNELS = {
     "trace": r"\btrace_kernel\b", "tri": r"\btri_kernel\b",
@@ -332,14 +338,18 @@ def summarize(events, frames: int, device_times: bool = True,
                 dev_span_us += cur_end - first
                 first = iv[0]
             elif iv[0] > cur_end:
-                holes.append((iv[0] - cur_end, cur, iv))
+                holes.append((iv[0] - cur_end, cur, iv, cur_end))
             if iv[1] > cur_end or window(iv[0]) != window(cur[0]):
                 cur_end, cur = iv[1], iv
         dev_span_us += cur_end - first
+    spans = [(ev.start_us, ev.end_us, ev.name) for ev in host
+             if ev.kind == "range" and ev.name.startswith("rtvb.")
+             and not ev.name.startswith(TOOL_RANGES)]
     holes = [dict(ms=gap / 1e3, before=f"{a[2][:60]} [{a[3]}]",
-                  after=f"{b[2][:60]} [{b[3]}]")
-             for gap, a, b in heapq.nlargest(n_holes, holes,
-                                             key=lambda h: h[0])]
+                  after=f"{b[2][:60]} [{b[3]}]",
+                  span=innermost_span(spans, at))
+             for gap, a, b, at in heapq.nlargest(n_holes, holes,
+                                                 key=lambda h: h[0])]
     stages = {}
     for name, (n_ranges, host_us) in stage_host.items():
         stages[name] = dict(
@@ -378,6 +388,16 @@ def summarize(events, frames: int, device_times: bool = True,
         runtime_calls={r["name"]: dict(per_frame=r["per_frame"],
                                        ms_per_frame=r["ms_per_frame"])
                        for r in _rows(runtime, frames)})
+
+
+def innermost_span(spans, at_us: float) -> str:
+    """The name of the shortest of `spans` ((start, end, name) µs) open at
+    `at_us`, or NO_SPAN."""
+    best = None
+    for s, e, name in spans:
+        if s <= at_us <= e and (best is None or e - s < best[0]):
+            best = (e - s, name)
+    return NO_SPAN if best is None else best[1]
 
 
 def profile_frames(frame_fn, n: int, device, callers: bool = True,
@@ -556,9 +576,10 @@ def report(res: dict, top: int = 15, out=print) -> None:
         for row in rows[:top]:
             out(f"  {row['ms_per_frame']:9.4f}  x{row['per_frame']:7.1f}  "
                 f"{row['name'][:100]}")
-    out("  -- largest idle holes --")
+    out("  -- largest idle holes (the program span open on the host) --")
     for h in e["holes"]:
-        out(f"  {h['ms']:8.4f} ms  after {h['before']}  before {h['after']}")
+        out(f"  {h['ms']:8.4f} ms  in {h['span']}  after {h['before']}  "
+            f"before {h['after']}")
 
 
 def main(argv=None) -> int:

@@ -59,7 +59,9 @@ and 736 (344 rows) on a banded frame's own calls, bit for bit.  The
 profiling tools: device_trace at 320×180 finds K1-K6 under their own
 kernel names, each with the launch counters' count for the same eager
 frames, and K7 nowhere at scale 1; timing.time_piece times each of its
-captures apart and reports their mean."""
+captures apart and reports their mean.  The tracer (utils/perf.py): a
+replay's five device stamps, its stages against its first-to-last
+stamp, its frames equal to those of a graph captured without stamps."""
 import os
 
 import numpy as np
@@ -1019,3 +1021,45 @@ def test_time_piece_means_over_captures(cuda):
     assert len(ms) == timing.CAPTURES and all(m > 0.0 for m in ms)
     assert t["replay_ms"] == pytest.approx(sum(ms) / len(ms))
     assert t["capture_ms"] > 0.0 and t["eager_ms"] > 0.0
+
+
+# ---------------------------------------------------------------------------
+# the tracer's device stamps (utils/perf.py) at 320×180
+# ---------------------------------------------------------------------------
+
+def test_tracer_stamps_each_replay(cuda):
+    """A replayed frame records its five stamps, read at the next frame's
+    entry: every interval positive, the three stages within 2% of the
+    frame's first-to-last stamp, a gap to the frame before; the u8 frames
+    equal, bit for bit, those of a copy rendered with the tracer off (its
+    graph holds no stamp)."""
+    import copy
+
+    from rtvb_tpu_torch.render.renderer import Engine
+    from rtvb_tpu_torch.utils import perf
+    eng = Engine(settings=_graph_settings(), device=cuda)
+    off = copy.copy(eng)
+    tracer, prev = perf.TRACER, perf.TRACER.enabled
+    try:
+        tracer.enabled = True
+        tracer.reset()
+        on_frames = [eng.render_realtime_device().cpu() for _ in range(4)]
+        tracer.read_stamps()
+        recs = list(tracer.records)
+        tracer.enabled = False
+        off_frames = [off.render_realtime_device().cpu() for _ in range(4)]
+    finally:
+        tracer.enabled = prev
+    for a, b in zip(on_frames, off_frames):
+        assert torch.equal(a, b)
+    (g_on,), (g_off,) = eng._graphs.values(), off._graphs.values()
+    assert g_on.stamps.recorded == set(perf.STAMPS)
+    assert not g_off.stamps.recorded
+    assert [r.n for r in recs] == [0, 1, 2, 3] and tracer.dropped == 0
+    for rec in recs[1:]:                  # the replays
+        ms = rec.device_ms
+        assert set(ms) == set(perf.INTERVALS)
+        assert all(v > 0.0 for v in ms.values()), ms
+        stages = ms["pathtrace"] + ms["denoise"] + ms["post"]
+        assert stages == pytest.approx(ms["frame"], rel=0.02)
+        assert rec.gap_ms is not None and rec.gap_ms > 0.0
