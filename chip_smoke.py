@@ -33,10 +33,16 @@
    instance), (f) bounce 1 as the frame calls it (the instance that also
    runs bounce 2), (g) and (h) the synthetic table with (24 candidates,
    6 taps) and (40, 8), past the compile-time instances' counts;
+   proctex (the procedural texture stack, textures.sample_scale and
+   sample_normal_delta) on the path tracer's own bounce-0 inputs of a
+   2560×1440 frame and of its 1/2 rung, both entry points, bit for bit,
+   its bound from its 20 or 24 B a pixel and the operations of the
+   pattern each pixel's tex_id selects;
 3. drives the main path — Engine(device="cuda") with the shipped
    Settings() at 1920×1080 (fused shading, native resolution) — through
    warm-up and timed frames, every kernel's launch counter reset just
-   before and read just after; K4 must launch 3 times a frame;
+   before and read just after; K4 must launch 3 times a frame and proctex
+   twice (normal mapping on);
 4. checks the frame: u8 shape, finite, non-constant, primary hit fraction;
    then renders two 1080p frames each at settings the dev panel reaches
    past the shipped ones (atrous_iterations 9 with phi_normal 80.0, whose
@@ -161,7 +167,8 @@
    JAX package itself meets the golden and otherwise to the reference's
    own miss; each accumulated golden's card frame is held to the port's
    CPU render of the same run at "close" (the 512² run at its frame 4);
-   then the accumulated frame's ms at 512² and 720², in turns.
+   then the accumulated frame's ms at 512² and 720², in turns; K1-K5 and
+   proctex must have launched.
 
 Exits non-zero, without the final line, on any failure or without a card.
 The last line is {"ok": true, "device": {...}}; the line before it lists
@@ -191,7 +198,8 @@ LOG_DIR = os.path.join(REPO, "chiprun_out")
 FRAME = (1920, 1080)          # the product frame (width, height)
 VS_CPU = (320, 180)           # whole-frame card-vs-CPU comparison size
 
-# each ported kernel: csrc source, the TPU pallas_call it replaces
+# each hand kernel: csrc source, the TPU pallas_call it replaces (or none:
+# the port's own kernel of a piece the JAX package leaves to XLA)
 KERNELS = {
     "trace": ("rtvb_tpu_torch/csrc/trace_kernel.cu",
               "rtvb_tpu/ops/trace_kernel.py:208"),
@@ -207,6 +215,8 @@ KERNELS = {
               "rtvb_tpu/render/ris_kernel.py:484"),
     "easu": ("rtvb_tpu_torch/csrc/easu_kernel.cu",
              "rtvb_tpu/ops/easu_kernel.py:249"),
+    "proctex": ("rtvb_tpu_torch/csrc/proctex_kernel.cu",
+                "none, the port's own"),
 }
 # kernels that run only below render_scale 1, on the rung frames' path
 RUNG_ONLY = ("easu",)
@@ -1199,6 +1209,110 @@ def easu_kernel_cases(inputs: dict, rep: Report):
                  easu_work(img, oh, ow))
 
 
+# the procedural texture stack's cases: the benchmark's 2560×1440 window,
+# natively and at the 1/2 rung
+PROCTEX_FRAME = (2560, 1440)
+# proctex's operations, counted from csrc/proctex_kernel.cu (each integer
+# and float operation of the source, sinf as 30): a lattice hash 16 (its
+# key 4, pcg_hash 9, to_unit_float 3); a value noise 91 (coordinates,
+# floors and fractions 6, two smoothsteps 8, two conversions and the
+# neighbours' 2, four hashes 64, three lerps 9); an fBm 189 (two noises
+# and 7); the stripes 127 (a noise, the sine and 6); the bricks 18 on
+# mortar (a brick's face adds its noise and 2, not counted).  Per
+# evaluation, by tex_id from -1: nothing, the fBms, stripes, bricks and
+# the flat pattern, each with the contrast's 3
+PROCTEX_EVAL_OPS = (0, 192, 192, 192, 130, 21, 3)
+PROCTEX_LOD_OPS = 4          # 1 / (1 + 2 lod) * 0.6, once a pixel
+PROCTEX_DELTA_OPS = 8        # u ± eps, v ± eps, two differences, two products
+
+
+def proctex_work(tid, lod, delta: bool):
+    """(bytes, ops) of one proctex launch: tex_id, u, v (and lod) in,
+    4 B a pixel out (scale) or 8 B (du, dv); the operations of each
+    pixel's evaluations by its tex_id (4 of them for the delta)."""
+    import torch
+    n = tid.numel()
+    hist = torch.bincount((tid.clamp(-1, 5) + 1).long().flatten(),
+                          minlength=len(PROCTEX_EVAL_OPS)).tolist()
+    evals = sum(c * o for c, o in zip(hist, PROCTEX_EVAL_OPS))
+    ops = (4 if delta else 1) * evals + n * (
+        (PROCTEX_DELTA_OPS if delta else 0)
+        + (PROCTEX_LOD_OPS if lod is not None else 0))
+    n_bytes = n * (12 + (4 if lod is not None else 0) + (8 if delta else 4))
+    return n_bytes, ops
+
+
+def capture_proctex_calls(eng) -> dict:
+    """The path tracer's bounce-0 calls of the texture stack in one eager
+    frame of `eng` → {"scale": (tex_id, u, v, lod), "normal delta": ...},
+    u and v already scaled by the material's uv_scale."""
+    from rtvb_tpu_torch.assets import textures
+    names = {"scale": "sample_scale", "normal delta": "sample_normal_delta"}
+    orig = {k: getattr(textures, n) for k, n in names.items()}
+    calls = {k: [] for k in names}
+
+    def recorder(key):
+        def rec(tex_id, u, v, lod=None, **kw):
+            calls[key].append(tuple(None if t is None else t.clone()
+                                    for t in (tex_id, u, v, lod)))
+            return orig[key](tex_id, u, v, lod, **kw)
+        return rec
+    for key, name in names.items():
+        setattr(textures, name, recorder(key))
+    try:
+        eng._eager_frame()
+    finally:
+        for key, name in names.items():
+            setattr(textures, name, orig[key])
+    for key, c in calls.items():
+        check(len(c) == 1, f"{len(c)} {key} calls of the stack in a frame")
+    return {key: c[0] for key, c in calls.items()}
+
+
+def proctex_kernel_cases(settings, rep: Report) -> dict:
+    """proctex against the plain stack, bit for bit, on the path tracer's
+    own bounce-0 inputs at 2560×1440 and at its 1/2 rung (both entry
+    points), timed → {label: tex_id shares}."""
+    import torch
+    from rtvb_tpu_torch.assets import textures
+    from rtvb_tpu_torch.render.renderer import Engine
+    pw, ph = PROCTEX_FRAME
+    eng = Engine(settings=settings.replace(rendering={
+        "render_width": pw, "render_height": ph}), device="cuda")
+
+    def bits(a, b):
+        a = a if isinstance(a, tuple) else (a,)
+        b = b if isinstance(b, tuple) else (b,)
+        check(len(a) == len(b), "proctex: outputs differ in number")
+        for x, y in zip(a, b):
+            bad = int((x.view(torch.int32) != y.view(torch.int32)).sum())
+            check(bad == 0, f"proctex: {bad} values differ")
+        return 0.0, 0.0
+    shares = {}
+    for label, scale in (("native", 1.0), ("1/2 rung", 0.5)):
+        eng.set_render_scale(scale)
+        calls = capture_proctex_calls(eng)
+        W, H = eng.width, eng.height
+        for key, args in calls.items():
+            tid, u, v, lod = args
+            check(tuple(u.shape) == (H, W), f"proctex {key} at {label}: "
+                  f"shape {tuple(u.shape)}")
+            fn, plain = (
+                (textures.sample_scale, textures._sample_scale_plain)
+                if key == "scale" else
+                (textures.sample_normal_delta,
+                 textures._sample_normal_delta_plain))
+            rep.case("proctex", f"{key}, frame's bounce 0 {label} {W}x{H}",
+                     lambda f=fn, a=args: f(*a), lambda f=plain, a=args: f(*a),
+                     bits, proctex_work(tid, lod, key != "scale"))
+        ids, cnt = torch.unique(calls["scale"][0], return_counts=True)
+        shares[label] = {int(i): round(int(c) / calls["scale"][0].numel(), 4)
+                         for i, c in zip(ids.tolist(), cnt.tolist())}
+        log(f"    proctex at {label}: tex_id shares {shares[label]}")
+    del eng
+    return shares
+
+
 def check_frame(out, shape, label):
     import torch
     u8 = out.cpu().numpy()
@@ -2047,7 +2161,8 @@ def graph_widened_vs_eager(settings, n: int = 2) -> dict:
 
 
 def graph_launch_counts(eng, K, n: int = 3) -> dict:
-    """Launch counts of n eager frames and of n replays: the same."""
+    """Launch counts of n eager frames and of n replays: the same; K4 3, K1
+    5 and proctex 2 (1 without normal mapping) a replay."""
     K.reset_launch_counts()
     for _ in range(n):
         eng._eager_frame()
@@ -2060,8 +2175,9 @@ def graph_launch_counts(eng, K, n: int = 3) -> dict:
     sync()
     log(f"launch counts of {n} frames, eager {eager}; replayed {replay}")
     check(eager == replay, f"replay counts {replay} != eager {eager}")
-    check(replay["shade"] == 3 * n and replay["trace"] == 5 * n,
-          f"replay counts {replay}")
+    n_proctex = 2 if eng.settings.rendering.normal_mapping else 1
+    check(replay["shade"] == 3 * n and replay["trace"] == 5 * n
+          and replay["proctex"] == n_proctex * n, f"replay counts {replay}")
     return dict(eager=eager, replay=replay)
 
 
@@ -3459,6 +3575,9 @@ def main() -> int:
     # K7 on the tone-mapped frame each rung hands to EASU, and on a mixed
     # per-axis ratio: the 2/3 rung of 320×180 renders 214×120
     easu_kernel_cases(easu_inputs(eng), rep)
+    # the texture stack's kernel on the path tracer's own bounce-0 inputs
+    # in the benchmark's window, natively and at the 1/2 rung
+    proctex_shares = proctex_kernel_cases(shipped, rep)
 
     # the main path: counts are reset right before and read right after
     phase("main path")
@@ -3480,6 +3599,9 @@ def main() -> int:
     n_frames = n_warm + n_timed
     check(counts["shade"] == rs.total_bounce_limit * n_frames,
           f"shade launched {counts['shade']} times in {n_frames} frames")
+    n_proctex = (2 if rs.normal_mapping else 1) * n_frames
+    check(counts["proctex"] == n_proctex,
+          f"proctex launched {counts['proctex']} times, not {n_proctex}")
     check_frame(out, (fh, fw, 3), "main path")
     u8 = out.cpu().numpy()
     log(f"frame u8: shape {u8.shape}, mean {u8.mean():.2f}, std "
@@ -3623,7 +3745,7 @@ def main() -> int:
         goldens = offline_phase(K, out_root)
     offline_counts = K.launch_counts()
     log(f"launch counts over the offline phase: {offline_counts}")
-    for name in ("trace", "tri", "texture", "shade", "warp"):
+    for name in ("trace", "tri", "texture", "shade", "warp", "proctex"):
         check(offline_counts.get(name, 0) > 0,
               f"the offline phase never launched kernel {name}")
     accumulated = accumulated_ms()
@@ -3656,6 +3778,10 @@ def main() -> int:
         "atrous": frame_sum("K6, steps 1, 2, 4, 8", [
             c for c in rep.cases
             if c["kernel"] == "atrous" and c["case"].startswith("frame")]),
+        "proctex": frame_sum("proctex, scale + normal delta at "
+                             f"{PROCTEX_FRAME[0]}x{PROCTEX_FRAME[1]}", [
+            c for c in rep.cases
+            if c["kernel"] == "proctex" and " native " in c["case"]]),
     }
     # launches: the main path's count, or for a kernel that runs only
     # below render_scale 1, its count over the rung frames
@@ -3679,6 +3805,7 @@ def main() -> int:
                        trace_substeps=substeps, ptxas=ptxas,
                        resident_blocks=occupancy, warp_rounds=k5_rounds,
                        shade_diffs=shade_diffs, whole_frame=whole,
+                       proctex_tex_id_shares=proctex_shares,
                        widened_frames=widened,
                        profile=prof, profile_inline=prof_inline,
                        rungs=rungs, rung_turns_ms=rung_turns,

@@ -1,10 +1,17 @@
 """Procedural surface textures evaluated per shading point (port of
 rtvb_tpu/assets/textures.py): hash value noise, stripes, bricks in the
-world-grid triplanar UV space, contrast rolled off with the ray-cone lod."""
+world-grid triplanar UV space, contrast rolled off with the ray-cone lod.
+
+`sample_scale` and `sample_normal_delta` launch ``csrc/proctex_kernel.cu``
+for CUDA tensors: one thread a pixel evaluates, in registers, only the
+pattern its texture id selects.  CPU tensors run the plain versions,
+`_sample_scale_plain` and `_sample_normal_delta_plain`, which the kernel
+matches to the bit."""
 from __future__ import annotations
 
 import torch
 
+from .. import kernels as K
 from ..ops import mathutil as m
 from ..ops.rng import pcg_hash, to_unit_float
 
@@ -49,7 +56,7 @@ def _fbm(u, v, freq, seed, octaves=2):
     return total / norm
 
 
-def sample_scale(tex_id, u, v, lod=None):
+def _sample_scale_plain(tex_id, u, v, lod=None):
     """Albedo multiplier in ~[0.7, 1.3] per texture id (-1 → 1.0)."""
     fine = _fbm(u, v, 9.0, 11)
     mid = _fbm(u, v, 5.0, 23)
@@ -79,14 +86,60 @@ def sample_scale(tex_id, u, v, lod=None):
     return torch.where(tex_id < 0, 1.0, scale)
 
 
-def sample_normal_delta(tex_id, u, v, lod=None, eps: float = 0.004):
-    s_up = sample_scale(tex_id, u + eps, v, lod)
-    s_un = sample_scale(tex_id, u - eps, v, lod)
-    s_vp = sample_scale(tex_id, u, v + eps, lod)
-    s_vn = sample_scale(tex_id, u, v - eps, lod)
+def _sample_normal_delta_plain(tex_id, u, v, lod=None, eps: float = 0.004):
+    s_up = _sample_scale_plain(tex_id, u + eps, v, lod)
+    s_un = _sample_scale_plain(tex_id, u - eps, v, lod)
+    s_vp = _sample_scale_plain(tex_id, u, v + eps, lod)
+    s_vn = _sample_scale_plain(tex_id, u, v - eps, lod)
     du = (s_up - s_un) / (2.0 * eps)
     dv = (s_vp - s_vn) / (2.0 * eps)
     return du, dv
+
+
+PROCTEX = K.register(K.CudaKernel("proctex", "rtvb_proctex",
+                                  [K.P] * 4 + [K.I, K.I, K.F, K.F]
+                                  + [K.P] * 2))
+
+
+def _proctex_cuda(tex_id, u, v, lod, eps=None):
+    """Launch csrc/proctex_kernel.cu on planes of u's shape (tex_id int32,
+    u, v, lod float32; lod may be None): (scale,), or (du, dv) at `eps`
+    when it is given."""
+    dev, shape = u.device, u.shape
+    args = [K.as_input(name, t.contiguous(), dtype, shape, dev)
+            for name, t, dtype in (("tex_id", tex_id, torch.int32),
+                                   ("u", u, torch.float32),
+                                   ("v", v, torch.float32))]
+    args.append(None if lod is None else
+                K.as_input("lod", lod.contiguous(), torch.float32, shape, dev))
+    n = u.numel()
+    if n >= 2 ** 31:
+        raise ValueError(f"{n} pixels: the kernel indexes them in int32")
+    delta = eps is not None
+    out = torch.empty((1 + delta, *shape), dtype=torch.float32, device=dev)
+    # torch on the card divides by a Python float as a product with its
+    # reciprocal, taken in double and rounded to float32 (csrc/common.cuh)
+    PROCTEX.launch(dev, *args, n, int(delta), float(eps or 0.0),
+                   1.0 / (2.0 * eps) if delta else 0.0, out[0],
+                   out[1] if delta else None)
+    return out.unbind(0)
+
+
+def sample_scale(tex_id, u, v, lod=None):
+    """Albedo multiplier in ~[0.7, 1.3] per texture id (-1 → 1.0): the
+    kernel for CUDA tensors, `_sample_scale_plain` for CPU tensors."""
+    if K.on_cuda(u):
+        return _proctex_cuda(tex_id, u, v, lod)[0]
+    return _sample_scale_plain(tex_id, u, v, lod)
+
+
+def sample_normal_delta(tex_id, u, v, lod=None, eps: float = 0.004):
+    """Central differences of `sample_scale` over ±eps in u and in v → (du,
+    dv): the kernel for CUDA tensors, `_sample_normal_delta_plain` for CPU
+    tensors."""
+    if K.on_cuda(u):
+        return _proctex_cuda(tex_id, u, v, lod, eps)
+    return _sample_normal_delta_plain(tex_id, u, v, lod, eps)
 
 
 def perturb_normal(n, du, dv, strength: float = 0.06):

@@ -5,6 +5,13 @@
 // the add that follows, exactly like the separate elementwise ops of each
 // kernel's plain PyTorch version, so a kernel and its plain version agree
 // to the bit wherever both call the same math functions.
+//
+// PyTorch on CUDA divides a float32 tensor by a Python float c as a product
+// with the reciprocal 1 / c taken in double and rounded to float32, not
+// 1.0f / float(c): the two differ for c = 0.008 (125.0f against 124.99999f;
+// measured on an H100 with torch 2.11) and agree for 1.5, 3 and pi.  A
+// twin multiplies by static_cast<float>(1.0 / c).  `c / tensor` is
+// reciprocal(tensor) * c: (1.0f / t) * c.
 #pragma once
 
 #include <cstdint>
@@ -60,6 +67,18 @@ __device__ __forceinline__ float bf16_hi(uint32_t w) {
 
 __device__ __forceinline__ float luminance(float r, float g, float b) {
   return 0.2126f * r + 0.7152f * g + 0.0722f * b;
+}
+
+// the RNG's hash of ops/rng.py in uint32 (the plain version's int64 wrap-
+// around arithmetic, low 32 bits)
+__device__ __forceinline__ uint32_t pcg_hash(uint32_t x) {
+  x = x * 747796405u + 2891336453u;
+  const uint32_t word = ((x >> ((x >> 28) + 4u)) ^ x) * 277803737u;
+  return (word >> 22) ^ word;
+}
+// uint32 → [0, 1) by mantissa injection
+__device__ __forceinline__ float to_unit_float(uint32_t bits) {
+  return __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
 }
 
 inline int blocks_for(long long n, int threads) {

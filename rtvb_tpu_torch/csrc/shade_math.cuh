@@ -7,10 +7,9 @@
 // Rounding rules that make the twin exact (the library is built with
 // --fmad=false, so no product is fused into the add that follows):
 //   * every expression keeps the plain version's association order;
-//   * PyTorch on CUDA divides a tensor by a Python scalar c as a product
-//     with the float reciprocal 1.0f / c (its div kernel's CPU-scalar
-//     path), so `x / PI` and `x / 3.0` are products with INV_PI / INV_3;
-//   * `c / tensor` is reciprocal(tensor) * c in PyTorch: (1.0f / t) * c;
+//   * a division by a Python scalar is a product with its reciprocal as
+//     common.cuh states it, so `x / PI` and `x / 3.0` are products with
+//     INV_PI / INV_3, and `c / tensor` is (1.0f / t) * c;
 //   * torch.rsqrt is rsqrtf (not 1 / sqrtf), torch.sqrt is IEEE sqrtf;
 //   * torch.clamp propagates NaN (clamp_min / clamp_max in common.cuh).
 #pragma once
@@ -22,8 +21,9 @@ namespace shade {
 
 constexpr float PI_F = 3.14159265358979323846f;
 constexpr float TWO_PI_F = 6.28318530717958647692f;   // float(2·π)
-constexpr float INV_PI = 1.0f / PI_F;                  // x / PI on CUDA
-constexpr float INV_3 = 1.0f / 3.0f;                   // x / 3.0 on CUDA
+// x / PI and x / 3.0 on CUDA
+constexpr float INV_PI = static_cast<float>(1.0 / 3.14159265358979323846);
+constexpr float INV_3 = static_cast<float>(1.0 / 3.0);
 constexpr float ROUGHNESS_THRESHOLD = 0.02f;
 constexpr float SMOOTH_TRANS_ROUGHNESS = 0.1f;
 constexpr float MAX_THROUGHPUT = 32.0f;
@@ -34,6 +34,8 @@ constexpr float MIN_COS = 1e-4f;
 using rtvb::clamp2;
 using rtvb::clamp_max;
 using rtvb::clamp_min;
+using rtvb::pcg_hash;
+using rtvb::to_unit_float;
 
 struct V3 {
   float x, y, z;
@@ -98,20 +100,12 @@ __device__ __forceinline__ V3 octa_decode(float u, float v) {
 
 // ---------------------------------------------------------------------------
 // RNG (ops/rng.py): PCG + R2 keyed by pixel, or blue-noise byte planes
+// (pcg_hash and to_unit_float in common.cuh)
 // ---------------------------------------------------------------------------
 
 constexpr uint32_t PHI2_X_BITS = 3242174889u;
 constexpr uint32_t PHI2_Y_BITS = 2447445413u;
 
-__device__ __forceinline__ uint32_t pcg_hash(uint32_t x) {
-  x = x * 747796405u + 2891336453u;
-  const uint32_t word = ((x >> ((x >> 28) + 4u)) ^ x) * 277803737u;
-  return (word >> 22) ^ word;
-}
-// uint32 → [0, 1) by mantissa injection
-__device__ __forceinline__ float to_unit_float(uint32_t bits) {
-  return __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
-}
 __device__ __forceinline__ float pcg_draw(uint32_t base, uint32_t frame,
                                           int dim) {
   const uint32_t d = static_cast<uint32_t>(dim);

@@ -12,8 +12,10 @@ the innermost function of rtvb_tpu_torch on the Python stack of the call
 that launched it (`assets/textures.py:sample_scale`) and (d) by the
 frame's stage ranges (`renderer.STAGES`).  A device event is attributed
 through the profiler's correlation, the launching op's id, and never by
-the time order of host ranges.  The Python stack is read where the call
-is made: during the profile each torch call of the frame and each hand
+the time order of host ranges; a hand kernel, which no op launches,
+through its CUDA runtime call's id to that call, and the call by the
+host ranges around it, as an op is.  The Python stack is read where the
+call is made: during the profile each torch call of the frame and each hand
 kernel's launch runs inside a range named by its innermost port function
 (`port_ranges`: a TorchFunctionMode, and `CudaKernel.launch` wrapped),
 since the profiler's own stacks (`with_stack`) reach its event list in
@@ -76,7 +78,8 @@ HAND_KERNELS = {
     "trace": r"\btrace_kernel\b", "tri": r"\btri_kernel\b",
     "texture": r"\btexture_kernel\b", "shade": r"\bshade_kernel\b",
     "warp": r"\bwarp_(nearest|bilinear)_kernel\b",
-    "atrous": r"\batrous_kernel\b", "easu": r"\beasu_kernel\b"}
+    "atrous": r"\batrous_kernel\b", "easu": r"\beasu_kernel\b",
+    "proctex": r"\bproctex_kernel\b"}
 HOST_BOUND_NOTE = (
     "eager frames with each call named are bound by the host: each "
     "kernel's duration holds, the holes and the busy share do not; the "
@@ -85,6 +88,9 @@ _CALLERS: dict = {}      # code object → "path:function" or None
 # device events of the tracer itself (CUPTI's overhead activities)
 TRACER_OVERHEAD = ("Activity Buffer Request", "Activity Buffer Flush",
                    "Buffer Flush", "CUPTI Overhead")
+# a CUDA API call on the host (cudaLaunchKernel,
+# cuLaunchKernel, ...), which no op may have made: a hand kernel's launch
+RUNTIME_CALL = re.compile(r"^cu(da)?[A-Z]")
 
 
 class Event(NamedTuple):
@@ -94,9 +100,10 @@ class Event(NamedTuple):
     device mirror) or "overhead" (the tracer's own, as CUPTI's buffer
     requests): no work.  corr: an op's or a range's own correlation
     id; for device work and runtime calls, the id of the op that launched
-    them (0: none recorded).  cupti: a runtime call's and its device
-    work's shared CUDA correlation id, which links device work whose op
-    id was lost to the runtime call's."""
+    them (0: none recorded, as for a hand kernel's launch, which no op
+    makes).  cupti: a runtime call's and its device work's shared CUDA
+    correlation id, which links device work whose op id was lost, or
+    never was, to the runtime call's."""
     name: str
     kind: str
     start_us: float
@@ -122,7 +129,7 @@ def events_from_kineto(raw):
                 continue
             if annotation:
                 kind, corr = "range", e.correlation_id()
-            elif e.linked_correlation_id() > 0:
+            elif e.linked_correlation_id() > 0 or RUNTIME_CALL.match(name):
                 kind, corr = "runtime", e.linked_correlation_id()
             else:
                 kind, corr = "op", e.correlation_id()
@@ -241,18 +248,24 @@ def summarize(events, frames: int, device_times: bool = True,
             _add(runtime, ev.name, ev.end_us - ev.start_us)
             if ev.corr and ev.cupti:
                 launched[ev.cupti] = ev.corr
+            elif ev.cupti:
+                # no op made the call (a hand kernel's launch): its
+                # context is the host ranges around it, as an op's is
+                host.append(ev)
         elif ev.kind not in ("mirror", "overhead") and device_times:
             device.append((ev, ev.end_us - ev.start_us))
     # the host's nesting, per thread: each op's and range's context is
     # the innermost caller range and stage range around it
     host.sort(key=lambda e: (e.thread, e.start_us, -e.end_us))
     ctx: dict = {}            # corr → (op key, function, stage, int64)
+    call_ctx: dict = {}       # CUDA correlation id of a call no op made
+    #                           → the same
     stage_host: dict = {}     # stage → [ranges, host us]
-    stack: list = []          # [event, function, stage, child op us]
+    stack: list = []          # [event, function, stage, child op us, key]
     span = [None, None]
 
     def pop():
-        ev, _, _, child_us = stack.pop()
+        ev, _, _, child_us, _ = stack.pop()
         if ev.kind == "op" and not device_times:
             dur = ev.end_us - ev.start_us
             device.append((ev._replace(kind="kernel"),
@@ -268,6 +281,10 @@ def summarize(events, frames: int, device_times: bool = True,
             pop()
         func, stage = (stack[-1][1], stack[-1][2]) if stack \
             else (None, None)
+        if ev.kind == "runtime":
+            call_ctx[ev.cupti] = (stack[-1][4] if stack else NO_OP,
+                                  func or OUTSIDE, stage or NO_STAGE, False)
+            continue
         key = op_key(ev.name, ev.dtypes)
         if ev.kind == "range":
             if ev.name in STAGE_NAMES:
@@ -285,7 +302,7 @@ def summarize(events, frames: int, device_times: bool = True,
             else min(span[0], ev.start_us)
         span[1] = ev.end_us if span[1] is None \
             else max(span[1], ev.end_us)
-        stack.append([ev, func, stage, 0.0])
+        stack.append([ev, func, stage, 0.0, key])
     while stack:
         pop()
 
@@ -300,8 +317,8 @@ def summarize(events, frames: int, device_times: bool = True,
     n_kernels = 0
     for ev, dur in device:
         corr = ev.corr or launched.get(ev.cupti, 0)
-        key, func, stage, int64 = ctx.get(corr,
-                                          (NO_OP, OUTSIDE, NO_STAGE, False))
+        key, func, stage, int64 = ctx.get(corr) or call_ctx.get(
+            ev.cupti, (NO_OP, OUTSIDE, NO_STAGE, False))
         if ev.kind == "kernel":
             n_kernels += 1
             _add(by_kernel, ev.name if device_times else key, dur)

@@ -15,7 +15,8 @@ lookups; the 11-field material gather and `block_to_mat` by plain
 indexing (the JAX tool's one-hot gathers are TPU workarounds, not
 ported); `bsdf.evaluate` and `bsdf.sample`; `sky_radiance`,
 `sun_radiance`, `sky_env_sample` and `sky_env_pdf`; the procedural
-textures' `sample_scale` and `sample_normal_delta`; 8 draws of
+textures' `sample_scale` and `sample_normal_delta` (on the card one
+launch each of csrc/proctex_kernel.cu); 8 draws of
 `rng.RandState` (white noise); and the entity intersect, K2 through
 `triangles.intersect_packed` against the engine's soup.  On the CPU the
 times are the host's and there is no replay.

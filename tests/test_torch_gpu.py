@@ -18,7 +18,11 @@ side of a hit, rays in the planes of tilted triangles, where the
 determinant is mostly rounding) against the flower soup, a padded random
 soup, a 2048-triangle soup (past 48 KB of shared memory), a soup of
 padding and lone tilted triangles, and at the frame's wave shapes; K3 on
-its interleaved atlas (and refusing an atlas without it); K4 on the eight
+its interleaved atlas (and refusing an atlas without it); the procedural
+texture stack's kernel (csrc/proctex_kernel.cu) against its plain
+versions on texture ids -2..6, negative u - eps, NaN / inf pixels and
+lods of None, 0, random and 1e30, and in a whole frame with and without
+the authored images (G-buffers and u8 to the bit); K4 on the eight
 cases of chip_smoke.py (the frame's own bounce inputs, synthetic lights,
 blue noise off, the generic instance at 5 candidates and 2 taps, at 24
 and 6 and at 40 and 8, bounce 1 as the frame calls it), every instance
@@ -289,6 +293,54 @@ def test_texture_kernel_matches_plain(engine):
     with pytest.raises(ValueError):
         it._sample_cuda(atlas._replace(hi4=None), t_count, tid, u, v, lvl)
     assert it.TEXTURE.launches == before
+
+
+def _proctex_planes(dev, lod_kind, seed=5, shape=(70, 200)):
+    """Texture ids in -2..6, u and v in [-0.5, 3.5) (u - eps < 0 too), the
+    lod of `lod_kind`, and NaN / inf pixels in u, v and the lod."""
+    g = torch.Generator().manual_seed(seed)
+    tid = torch.randint(-2, 7, shape, generator=g, dtype=torch.int32)
+    u = torch.rand(shape, generator=g) * 4.0 - 0.5
+    v = torch.rand(shape, generator=g) * 4.0 - 0.5
+    lod = {"none": None, "0": torch.zeros(shape),
+           "random": torch.rand(shape, generator=g) * 0.05,
+           "1e30": torch.full(shape, 1e30)}[lod_kind]
+    bad = (float("nan"), float("inf"), -float("inf"))
+    for k, x in enumerate(bad):
+        u[k::23, 5 + k::31] = x
+        v[k + 7::29, k::37] = x
+        if lod is not None:
+            lod[k + 3::19, k + 11::41] = x
+    return (tid.to(dev), u.to(dev), v.to(dev),
+            None if lod is None else lod.to(dev))
+
+
+@pytest.mark.parametrize("lod_kind", ["none", "0", "random", "1e30"])
+@pytest.mark.parametrize("entry", ["scale", "normal_delta"])
+def test_proctex_kernel_matches_plain(cuda, entry, lod_kind):
+    """csrc/proctex_kernel.cu against the plain texture stack, bit for bit;
+    one launch a call; a wrong dtype or a CPU plane raises before any."""
+    from rtvb_tpu_torch.assets import textures as tx
+    tid, u, v, lod = _proctex_planes(cuda, lod_kind)
+    if entry == "scale":
+        fn, plain = tx.sample_scale, tx._sample_scale_plain
+    else:
+        fn, plain = tx.sample_normal_delta, tx._sample_normal_delta_plain
+    before = tx.PROCTEX.launches
+    got = fn(tid, u, v, lod)
+    assert tx.PROCTEX.launches == before + 1
+    want = plain(tid, u, v, lod)
+    if entry == "scale":
+        got, want = (got,), (want,)
+    for a, b in zip(got, want, strict=True):
+        assert _bits_equal(a, b)
+    with pytest.raises(TypeError):
+        fn(tid.to(torch.int64), u, v, lod)
+    with pytest.raises(ValueError):
+        fn(tid.cpu(), u, v, lod)
+    with pytest.raises(ValueError):
+        fn(tid, u, v.cpu(), lod)
+    assert tx.PROCTEX.launches == before + 1
 
 
 @pytest.mark.parametrize("bilinear", [False, True])
@@ -871,6 +923,39 @@ def test_entity_frame_tri_and_texture_match_plain(cuda, lantern):
     assert [c["kernel"] for c in rep.cases] == ["tri"] * 5 + ["texture"]
 
 
+@pytest.mark.parametrize("authored", [True, False])
+def test_frame_proctex_kernel_matches_plain(cuda, authored, monkeypatch):
+    """The path trace's G-buffers and the u8 frame with the texture stack
+    on its kernel, and on a copy of the engine with the plain versions
+    patched in, bit for bit: with the authored images as shipped, and
+    without them, where the stack's values reach the albedo and the
+    normal.  Two launches a frame (normal mapping on)."""
+    import copy
+
+    from rtvb_tpu_torch.assets import textures as tx
+    from rtvb_tpu_torch.render.renderer import Engine
+    eng = Engine(settings=_graph_settings(authored_textures=authored),
+                 device=cuda)
+    ref = copy.copy(eng)
+    before = tx.PROCTEX.launches
+    g_kernel, _ = eng.render_gbuffers()
+    u8_kernel = eng._eager_frame()
+    assert tx.PROCTEX.launches == before + 4
+    monkeypatch.setattr(tx, "sample_scale", tx._sample_scale_plain)
+    monkeypatch.setattr(tx, "sample_normal_delta",
+                        tx._sample_normal_delta_plain)
+    g_plain, _ = ref.render_gbuffers()
+    u8_plain = ref._eager_frame()
+    assert tx.PROCTEX.launches == before + 4
+    for f in g_kernel._fields:
+        a, b = getattr(g_kernel, f), getattr(g_plain, f)
+        if isinstance(a, tuple):
+            assert all(_bits_equal(x, y) for x, y in zip(a, b)), f
+        elif a is not None:
+            assert _bits_equal(a, b), f
+    assert torch.equal(u8_kernel, u8_plain)
+
+
 def test_entity_edits_keep_the_graph(cuda):
     """Edits that keep every table's shape: no recapture, and the replays
     after them equal eager frames of a copy, bit for bit; a growing edit
@@ -1004,9 +1089,13 @@ def test_device_trace_finds_the_hand_kernels(cuda):
     res = device_trace.device_trace("cuda", 1.0, frames=2, width=320,
                                     height=180)
     hand = res["eager"]["hand_kernels"]
-    for name in ("trace", "tri", "texture", "shade", "warp", "atrous"):
+    for name in ("trace", "tri", "texture", "shade", "warp", "atrous",
+                 "proctex"):
         assert hand[name]["count"] == res["launches"][name] > 0, name
     assert hand["easu"]["count"] == res["launches"]["easu"] == 0
+    # a hand kernel's launch, which no op makes, names its port function
+    fn = {r["name"]: r["count"] for r in res["eager"]["by_function"]}
+    assert fn["assets/textures.py:_proctex_cuda"] == hand["proctex"]["count"]
     assert res["eager"]["function_share"] >= 0.95
     assert res["replay"]["kernels_per_frame"] > 0
 

@@ -95,7 +95,7 @@ def test_device_trace_cpu_profile_names_port_functions(cpu_trace):
     tex = [f for f in funcs if f.startswith("assets/textures.py:")]
     rng = [f for f in funcs if f.startswith("ops/rng.py:")]
     assert tex and rng, sorted(funcs)[:40]
-    assert "assets/textures.py:sample_scale" in funcs
+    assert "assets/textures.py:_sample_scale_plain" in funcs
     assert all(funcs[f]["ms_per_frame"] >= 0.0 for f in tex + rng)
     # every stage's ops carry the stage; the post stage is the cheapest
     stages = {r["name"]: r for r in cpu_trace["eager"]["by_stage"]}
@@ -342,7 +342,7 @@ def test_profile_interleaved_splits_the_windows_on_cpu():
     assert eager["stages"]["rtvb.pathtrace"]["ranges"] == 2
     assert replay["stages"] == {}
     funcs = {r["name"] for r in eager["by_function"]}
-    assert "assets/textures.py:sample_scale" in funcs
+    assert "assets/textures.py:_sample_scale_plain" in funcs
     assert [r["name"] for r in replay["by_function"]] == [
         device_trace.OUTSIDE]
     assert "aten::cumsum" in {r["name"].split("(")[0]
@@ -437,6 +437,38 @@ def test_events_from_kineto_kinds():
     assert s["by_op"][0]["name"] == "aten::mul(float)"
 
 
+def test_summarize_attributes_a_launch_no_op_made():
+    """A hand kernel's launch comes from ctypes, so no op links its CUDA
+    runtime call or its kernel: the call takes its function, op key and
+    stage from the host ranges around it, and the kernel the call's
+    through their shared CUDA correlation id."""
+    raw = [_Kineto("rtvb.pathtrace", False, 0, 50000, corr=1),
+           _Kineto("rtvb.kernel.proctex assets/textures.py:_proctex_cuda",
+                   False, 1000, 2000, corr=2),
+           _Kineto("cudaLaunchKernel", False, 1500, 100, corr=41),
+           _Kineto("void (anonymous namespace)::proctex_kernel<true>(int)",
+                   True, 60000, 90000, corr=41),
+           # the same outside every range: no function, no stage
+           _Kineto("cuLaunchKernel", False, 70000, 100, corr=42),
+           _Kineto("stray_kernel", True, 200000, 10000, corr=42)]
+    evs = list(device_trace.events_from_kineto(raw))
+    assert [(e.kind, e.corr, e.cupti) for e in evs[2:]] == [
+        ("runtime", 0, 41), ("kernel", 0, 41), ("runtime", 0, 42),
+        ("kernel", 0, 42)]
+    s = summarize(evs, frames=1)
+    fn = {r["name"]: r["ms_per_frame"] * 1e3 for r in s["by_function"]}
+    assert fn == {"assets/textures.py:_proctex_cuda": 90.0,
+                  device_trace.OUTSIDE: 10.0}
+    ops = {r["name"]: r["ms_per_frame"] * 1e3 for r in s["by_op"]}
+    assert ops == {"rtvb.kernel.proctex": 90.0, device_trace.NO_OP: 10.0}
+    st = {r["name"]: r["ms_per_frame"] * 1e3 for r in s["by_stage"]}
+    assert st == {"rtvb.pathtrace": 90.0, device_trace.NO_STAGE: 10.0}
+    assert s["hand_kernels"]["proctex"] == dict(count=1, ms_per_frame=0.09)
+    assert s["function_share"] == pytest.approx(0.9)
+    assert s["runtime_calls"]["cudaLaunchKernel"]["per_frame"] == 1.0
+    assert s["span_ms"] * 1e3 == pytest.approx(50.0)
+
+
 def test_port_caller_outside_the_port_and_launch_restored():
     import sys
     assert device_trace.port_caller(sys._getframe()) is None
@@ -457,7 +489,7 @@ def test_port_ranges_name_each_call_in_a_profile():
         with device_trace.port_ranges():
             tex.sample_scale(tid, u, u, u)
     names = {e.name() for e in prof.profiler.kineto_results.events()}
-    assert "rtvb.fn assets/textures.py:sample_scale" in names
+    assert "rtvb.fn assets/textures.py:_sample_scale_plain" in names
     assert "rtvb.fn assets/textures.py:lattice" in names
     assert "rtvb.fn ops/rng.py:pcg_hash" in names
 

@@ -21,6 +21,7 @@ from rtvb_tpu.world import gen as jgen
 from rtvb_tpu.world import lighting as jlight
 from rtvb_tpu.world import voxel as jvoxel
 from rtvb_tpu_torch import interop
+from rtvb_tpu_torch import kernels as K
 from rtvb_tpu_torch.assets import textures as ptex
 from rtvb_tpu_torch.assets.blocks import BlockRegistry as PBlockRegistry
 from rtvb_tpu_torch.assets.decorations import DecorationMeshes
@@ -223,3 +224,42 @@ def test_procedural_textures():
     for a, b in zip(jn + juv, pn + puv):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-5,
                                    atol=1e-5)
+
+
+@pytest.mark.parametrize("with_lod", [False, True])
+def test_procedural_textures_cpu_dispatch(monkeypatch, with_lod):
+    """On CPU tensors `sample_scale` and `sample_normal_delta` load no
+    kernel library and launch nothing, and match JAX's for every id from -1
+    through 5 (past the last pattern: the flat 0.5 pattern), with the lod
+    and without it (contrast 0.6); u and v reach below 0."""
+    def no_library():
+        raise AssertionError("a CPU call loaded the kernel library")
+    monkeypatch.setattr(K.LIBRARY, "get", no_library)
+    rng = np.random.default_rng(2)
+    shape = (7, 30)
+    tid = np.repeat(np.arange(-1, 6, dtype=np.int32), shape[1]).reshape(shape)
+    u = rng.uniform(-0.5, 3.5, shape).astype(np.float32)
+    v = rng.uniform(-0.5, 3.5, shape).astype(np.float32)
+    lod = rng.uniform(0, 2, shape).astype(np.float32) if with_lod else None
+    T = torch.from_numpy
+    before = ptex.PROCTEX.launches
+    p1 = ptex.sample_scale(T(tid), T(u), T(v), None if lod is None else T(lod))
+    pdu, pdv = ptex.sample_normal_delta(T(tid), T(u), T(v),
+                                        None if lod is None else T(lod))
+    assert ptex.PROCTEX.launches == before
+    jlod = None if lod is None else jnp.asarray(lod)
+    with jax.disable_jit():
+        j1 = jtex.sample_scale(jnp.asarray(tid), jnp.asarray(u),
+                               jnp.asarray(v), jlod)
+        jdu, jdv = jtex.sample_normal_delta(jnp.asarray(tid), jnp.asarray(u),
+                                            jnp.asarray(v), jlod)
+    np.testing.assert_allclose(p1.numpy(), np.asarray(j1), rtol=1e-5,
+                               atol=1e-6)
+    # finite differences over eps = 0.004 amplify the last-bit noise 125×
+    for a, b in ((jdu, pdu), (jdv, pdv)):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-5,
+                                   atol=2e-3)
+    # -1 is the identity and 5 the flat pattern; 0-4 vary over the plane
+    assert (p1[0] == 1.0).all() and not pdu[0].any() and not pdv[0].any()
+    assert (p1[6] == p1[6, 0]).all() and not pdu[6].any()
+    assert all(p1[k].unique().numel() > 1 for k in range(1, 6))
