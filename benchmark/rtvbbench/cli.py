@@ -4,11 +4,11 @@
 Set-up (counted in setup_s, from the process's start): the kernel
 library (built once per checkout into build/kernels/, then loaded), the
 Engine of the cell's configuration, the character, the warm-up of every
-shape the cell's traffic uses.  Then the window of `--seconds`, then
-(`--trace 1`) three eager frames profiled for the stage split, then the
-output check.  The last line of standard output is the result; the
-numbers compared, each beside its limit, are the last lines of standard
-error.
+shape the cell's traffic uses.  Then the cell's settle phase (not counted
+in setup_s), the window of `--seconds`, then (`--trace 1`) three eager
+frames profiled for the stage split, then the output check.  The last
+line of standard output is the result; the numbers compared, each beside
+its limit, are the last lines of standard error.
 """
 from __future__ import annotations
 
@@ -146,8 +146,9 @@ def traced_extras(sess, roles: dict) -> dict:
 
 def run_cell(bench: Benchmark, cell_name: str, seed: int, seconds: float,
              trace: bool, device="cuda", window=None,
-             t_start=None) -> dict:
-    """One run of a cell → the result (without its printing)."""
+             t_start=None, settle_s=None) -> dict:
+    """One run of a cell → the result (without its printing).  settle_s:
+    the settle phase's seconds (None: the cell's)."""
     cell = bench.cell(cell_name)
     cfg = bench.config(cell["config"])
     limits = bench.limits(cell_name)
@@ -163,6 +164,8 @@ def run_cell(bench: Benchmark, cell_name: str, seed: int, seconds: float,
     sess.start()
     age = process_age_s()
     setup_s = age if age is not None else time.perf_counter() - t_start
+    sess.settle(bench.settle_s(cell_name) if settle_s is None
+                else settle_s)
     # the traced slice closes the window: the frames before it are the
     # untraced ones device.idle_share divides by
     sess.run_window(seconds, profile_slice=(

@@ -1,11 +1,17 @@
-"""One cell of the benchmark on the port: set-up, the measured window, and
-the frames after it.
+"""One cell of the benchmark on the port: set-up, the settle phase, the
+measured window, and the frames after it.
 
 A frame, as `InteractiveApp.run` makes it: the character steps (a walking
 cell), the camera moves, every click due by now is made (pick, then place
 or delete), then `Engine.render_realtime_device(dt)` (a graph replay on
 the card) and a synchronize of its output.  No frame is kept in flight.
 Clicks come on a wall-clock schedule that does not wait for frames.
+
+The settle phase, between set-up and the window, renders at the
+window's first pose for a cell's `settle_s` seconds (`cells/<cell>.json`)
+with no clicks and no character steps, so that the replays' slow stretch
+at a process's start passes before the window opens.  Its frames are not
+the window's and it is not counted in setup_s.
 
 Every input the engine is given (poses, dt, clicks, character steps) is
 logged by frame, so that the output check can give the reference the
@@ -127,6 +133,17 @@ class Session:
             pos, yaw, pitch = self.pose
             self.eng.set_camera(pos=pos, yaw=yaw, pitch=pitch)
 
+    def settle(self, seconds: float):
+        """Frames at the window's first pose for `seconds` of the host
+        clock, before the window: no clicks, no character steps."""
+        if seconds <= 0:
+            return
+        self.phase = "settle"
+        end = self.clock() + seconds
+        while self.clock() < end:
+            self.frame(0.0, step=False)
+        self.sync()
+
     pose = None            # the camera pose last given (None: the scene's)
 
     def _next_move(self):
@@ -159,17 +176,18 @@ class Session:
     # -- one frame -------------------------------------------------------
 
     def frame(self, t, process_clicks: bool = False,
-              force_clicks: int = 0, eager: bool = False):
+              force_clicks: int = 0, eager: bool = False, step: bool = True):
         """One frame of the traffic at `t` seconds into the window (None:
         the base pose, in the warm-up); returns the u8 frame (on the
         engine's device).  process_clicks: make every click due by now
         first; force_clicks: make that many of the next clicks first, due
         or not; eager: the frame op by op (`Engine._eager_frame`, what the
-        graph captured) in place of the replay."""
+        graph captured) in place of the replay; step: the character's step
+        (none in the settle phase)."""
         eng, tr = self.eng, self.traffic
         rec = dict(n=len(self.frames), clicks=[],
                    char_steps=len(self.char_log), phase=self.phase)
-        if self.character is not None:
+        if self.character is not None and step:
             with self.span("character"):
                 self._char_step(self._next_move())
         rec["char_upto"] = len(self.char_log)

@@ -2,10 +2,11 @@
 
 A cell (`workloads` in BENCHMARK.json) names a configuration and a
 traffic mix: `configs/<config>.json` and `traffic/<traffic>.json` hold
-them.  Every metric is a reader `metrics/<name>.py`, every hand kernel's
-role (its device name and its work) `kernels/<name>.py`, and the limits
-of a cell's output check `limits/<cell>.json`.  Adding one of these is
-adding a file and an entry, never editing an existing file.
+them; `cells/<cell>.json`, where there is one, how the cell runs
+(`settle_s`).  Every metric is a reader `metrics/<name>.py`, every hand
+kernel's role (its device name and its work) `kernels/<name>.py`, and
+the limits of a cell's output check `limits/<cell>.json`.  Adding one
+of these is adding a file and an entry, never editing an existing file.
 """
 from __future__ import annotations
 
@@ -60,6 +61,14 @@ class Benchmark:
 
     def traffic(self, name: str) -> dict:
         return _read_json(os.path.join(self.dir, "traffic", name + ".json"))
+
+    def settle_s(self, cell: str) -> float:
+        """The seconds of the cell's settle phase before its window
+        (`cells/<cell>.json`; 0 without one)."""
+        path = os.path.join(self.dir, "cells", cell + ".json")
+        if not os.path.exists(path):
+            return 0.0
+        return float(_read_json(path)["settle_s"])
 
     def limits(self, cell: str) -> dict:
         return _read_json(os.path.join(self.dir, "limits", cell + ".json"))

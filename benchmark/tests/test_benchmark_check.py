@@ -2,7 +2,9 @@
 card skipped): sound runs come out correct; the run with the timed path
 broken underneath, once for each fault a cell can have, and the control
 (the reference in bfloat16 in the program's place) come out not correct.
-The check at the cells' own size runs on the card (marked gpu)."""
+The runs here have no settle phase, which test_benchmark_session
+covers.  The check at the cells' own size runs on the card (marked
+gpu)."""
 import os
 import subprocess
 import sys
@@ -23,7 +25,7 @@ SEED = 2 ** 31 + 17
 def cpu_run(cell, trace=False, seconds=1.0, seed=SEED):
     import time
     return run_cell(Benchmark(), cell, seed, seconds, trace, device="cpu",
-                    window=WINDOW, t_start=time.perf_counter())
+                    window=WINDOW, t_start=time.perf_counter(), settle_s=0.0)
 
 
 @pytest.mark.parametrize("cell", ["native.fly", "half.build", "half.walk"])
